@@ -17,8 +17,16 @@ Phases, each printing one JSON line with its own seconds:
    repeat itself, the kernel-path prefill logits must agree with the plain
    ``forward_train``, and both kernels' launch counts over the served
    requests must be above 0;
-5. the ``kernels`` line the benchmark contract reads;
-6. shutdown, then the last line ``{"ok": true, "device": {...}}``.
+5. engine_prefix — the same model with chunked prefill and the prefix
+   cache (the app's default serving settings), serving 4 interview
+   sessions x 3 turns through ``submit_tokens(prefix_key=...)`` and one
+   ``generate_text(prefix_key=...)``: every output must parse, the prefix
+   cache must hit (>= 8 hits, tokens saved), the paged chunk kernel must
+   have been launched by the served traffic, and the last-position logits
+   of a chunked prefill from 0 and of a resume from a page boundary must
+   agree with ``forward_train``;
+6. the ``kernels`` line the benchmark contract reads;
+7. shutdown, then the last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the script exits non-zero without the last
 line.  Without CUDA it exits 2 before any phase.
@@ -27,6 +35,7 @@ line.  Without CUDA it exits 2 before any phase.
 from __future__ import annotations
 
 import concurrent.futures
+import gc
 import glob
 import json
 import os
@@ -214,6 +223,111 @@ def _decode_case(name, B, H, KV, HD, P, MP, lens, pool_dtype, gen,
     return out
 
 
+def _chunk_case(name, B, C, H, KV, HD, P, MP, starts, ends, pool_dtype, gen,
+                iters=20):
+    """``paged_chunk_attention`` against its plain version: every output
+    row (both compute the padded rows of a last chunk with one formula)."""
+    from deepvision_tpu_torch.engine.kernels import paged_chunk as pc
+    from deepvision_tpu_torch.engine.kv_cache import quantize_rows
+
+    dev = torch.device("cuda")
+    N = B * MP + 1
+    q = torch.randn(B, C, H, HD, generator=gen, device=dev).to(torch.bfloat16)
+    kf = torch.randn(KV, N, P, HD, generator=gen, device=dev)
+    vf = torch.randn(KV, N, P, HD, generator=gen, device=dev)
+    ks = vs = None
+    if pool_dtype == torch.int8:
+        ks = torch.full((KV,), 3.0 / 127, device=dev)
+        vs = torch.full((KV,), 3.0 / 127, device=dev)
+        kp, vp = quantize_rows(kf, ks, 0), quantize_rows(vf, vs, 0)
+    else:
+        kp, vp = kf.to(pool_dtype), vf.to(pool_dtype)
+    # each sequence owns MP distinct pages; entries past its live pages
+    # are 0 (the trash page), as in the scheduler's block tables
+    bt = (1 + torch.randperm(B * MP, generator=gen, device=dev)
+          ).reshape(B, MP).to(torch.int32)
+    for i, n in enumerate(ends):
+        bt[i, -(-n // P):] = 0
+    st = torch.tensor(starts, dtype=torch.int32, device=dev)
+    en = torch.tensor(ends, dtype=torch.int32, device=dev)
+    got = pc.paged_chunk_attention(q, kp, vp, bt, st, en, k_scale=ks,
+                                   v_scale=vs)
+    want = pc.paged_chunk_attention_reference(q, kp, vp, bt, st, en,
+                                              k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    # bf16 outputs: both sides round one fp32 value (1 bf16 ulp of an O(1)
+    # output is 2^-8) after summing in another order
+    tol = 2e-2
+    if not err <= tol or not torch.isfinite(got).all():
+        raise AssertionError(f"chunk {name}: max_abs_err {err} > {tol}")
+    ms = cuda_ms(lambda: pc.paged_chunk_attention(
+        q, kp, vp, bt, st, en, k_scale=ks, v_scale=vs), iters)
+    plain_ms = cuda_ms(lambda: pc.paged_chunk_attention_reference(
+        q, kp, vp, bt, st, en, k_scale=ks, v_scale=vs), max(2, iters // 5))
+    # library yardstick: SDPA on K/V already gathered dense (the gather
+    # itself is left out of its time), with the causal-offset bool mask
+    L = max(ends)
+
+    def dense(pool, scale):
+        x = pool.float() * (scale[:, None, None, None] if scale is not None
+                            else 1.0)
+        # [KV, B, MP, P, HD] -> [B, KV, MP * P, HD], cut to L columns
+        return (x[:, bt.long()].permute(1, 0, 2, 3, 4)
+                .reshape(B, KV, MP * P, HD)[:, :, :L].to(torch.bfloat16)
+                .contiguous())
+
+    kd, vd = dense(kp, ks), dense(vp, vs)
+    col = torch.arange(L, device=dev)
+    q_pos = st.long()[:, None] + torch.arange(C, device=dev)[None, :]
+    mask = ((col[None, None, :] <= q_pos[:, :, None])
+            & (col[None, None, :] < en.long()[:, None, None]))[:, None]
+    qt = q.transpose(1, 2).contiguous()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library_ms = cuda_ms(
+        lambda: sdpa(qt, kd, vd, attn_mask=mask, enable_gqa=True), iters)
+    itemsize = kp.element_size()
+    live_cols = sum(ends)
+    nbytes = (2 * q.numel() * 2 + 2 * live_cols * KV * HD * itemsize
+              + sum(-(-n // P) for n in ends) * 4 + 8 * B
+              + (8 * KV if ks is not None else 0))
+    pairs = sum(min(s0 + c + 1, n) for s0, n in zip(starts, ends)
+                for c in range(C))
+    flops = 4.0 * H * HD * pairs
+    bound_ms, bound_by = bound(nbytes, flops, H100_BF16_FLOP_S)
+    out = {"case": name, "shape": [B, C, H, KV, HD, P, MP],
+           "starts": starts, "ends": ends,
+           "pool_dtype": str(pool_dtype).split(".")[-1], "max_abs_err": err,
+           "tol": tol, "ms": ms, "plain_ms": plain_ms,
+           "library_ms": library_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "gflop": flops / 1e9, "mbytes": nbytes / 1e6}
+    emit({"phase": "kernels", "kernel": "paged_chunk", **out})
+    return out
+
+
+def chunk_cases(gen) -> dict:
+    """Every ``paged_chunk`` case; returns the main one, dv-base's prefix
+    resume (B=1, C=256, start 640 -> n 896, bf16 pools)."""
+    bf16, i8 = torch.bfloat16, torch.int8
+    main = None
+    for pool in (bf16, i8):
+        tag = "" if pool == bf16 else "_int8"
+        for start, n in ((640, 896), (0, 256), (1792, 1900)):
+            out = _chunk_case(f"main_s{start}_n{n}{tag}", 1, 256, 6, 2, 128,
+                              64, 32, [start], [n], pool, gen)
+            if main is None:
+                main = out
+    _chunk_case("b2_ragged", 2, 256, 6, 2, 128, 64, 32, [256, 1024],
+                [512, 1100], bf16, gen)
+    _chunk_case("hd32", 1, 64, 4, 2, 32, 16, 8, [64], [100], bf16, gen,
+                iters=10)
+    _chunk_case("hd64_g8", 1, 32, 8, 1, 64, 16, 8, [16], [40], bf16, gen,
+                iters=10)
+    _chunk_case("hd256", 1, 64, 8, 1, 256, 64, 4, [64], [128], bf16, gen,
+                iters=10)
+    return main
+
+
 def phase_kernels() -> dict:
     t0 = time.monotonic()
     gen = torch.Generator(device="cuda")
@@ -242,8 +356,10 @@ def phase_kernels() -> dict:
                      gen),
         _decode_case("hd256", 2, 8, 1, 256, 64, 4, [256, 130], bf16, gen),
     ]
+    chunk = chunk_cases(gen)
     emit({"phase": "kernels_done", "seconds": time.monotonic() - t0})
-    return {"flash_fwd": flash[0], "paged_decode_update": decode[0]}
+    return {"flash_fwd": flash[0], "paged_decode_update": decode[0],
+            "paged_chunk": chunk}
 
 
 def _report_prompts(tokenizer, targets):
@@ -384,6 +500,186 @@ def phase_engine() -> dict:
     return out
 
 
+def _interview_sessions(tokenizer, n_turns=3):
+    """Token ids of 4 interview sessions' turns: turn 1 is a report-style
+    prompt of 600/700/800/900 tokens; every later turn is the previous
+    turn's prompt plus a ~200-token answer, so the head's ids are stable."""
+    files = sorted(glob.glob(os.path.join(ROOT, "resources", "scenarios",
+                                          "builtin", "*.json")))
+    sessions = []
+    for i, text in enumerate(_report_prompts(tokenizer, [600, 700, 800, 900])):
+        with open(files[i % len(files)], encoding="utf-8") as fh:
+            sc = json.load(fh)
+        turns = [tokenizer.encode(text)]
+        for t in range(1, n_turns):
+            dims = sc["dimensions"]
+            answer = "".join(
+                f"\n补充回答{t}-{k + 1}（{dims[(t + k) % len(dims)]['name']}）："
+                f"{dims[(t + k) % len(dims)]['description']}，"
+                f"现场确认{'、'.join(dims[(t + k) % len(dims)]['key_aspects'])}。"
+                for k in range(12))
+            turns.append(turns[-1] + tokenizer.encode(answer)[:200])
+        sessions.append(turns)
+    return sessions
+
+
+def _chunked_logits(model_lib, params, cfg, ids, head_n):
+    """Last-position logits of ``ids`` on a fresh cache: ``head_n`` tokens
+    (page-aligned, may be 0) written by ``forward_prefill``, the rest by
+    ``forward_prefill_chunk`` in chunks of 256 from ``head_n``."""
+    from deepvision_tpu_torch.engine.kv_cache import CacheConfig, init_cache
+
+    dev, P, MP, C = "cuda", 64, 32, 256
+    n = len(ids)
+    cache = init_cache(cfg, CacheConfig(num_pages=MP + 1, page_size=P,
+                                        max_pages_per_seq=MP), device=dev)
+    bt = torch.arange(1, MP + 1, dtype=torch.int32, device=dev)[None]
+    toks = torch.tensor(ids, dtype=torch.int32, device=dev)[None]
+    if head_n:
+        model_lib.forward_prefill(
+            params, cache, toks[:, :head_n],
+            torch.tensor([head_n], dtype=torch.int32, device=dev),
+            bt[:, : head_n // P], cfg=cfg)
+    for start in range(head_n, n, C):
+        chunk = torch.zeros(1, C, dtype=torch.int32, device=dev)
+        piece = toks[:, start:start + C]
+        chunk[:, : piece.shape[1]] = piece
+        logits = model_lib.forward_prefill_chunk(
+            params, cache, chunk,
+            torch.tensor([start], dtype=torch.int32, device=dev),
+            torch.tensor([n], dtype=torch.int32, device=dev), bt, cfg=cfg)
+    return logits[0]
+
+
+def phase_engine_prefix() -> dict:
+    from deepvision_tpu_torch.engine import model as model_lib
+    from deepvision_tpu_torch.engine.engine import EngineConfig, LLMEngine
+    from deepvision_tpu_torch.engine.kernels.flash_attention import (
+        flash_attention,
+    )
+    from deepvision_tpu_torch.engine.kernels.paged_attention import (
+        paged_attention_update,
+    )
+    from deepvision_tpu_torch.engine.kernels.paged_chunk import (
+        paged_chunk_attention,
+    )
+
+    # the first engine's pools and weights must be gone before this one
+    gc.collect()
+    torch.cuda.empty_cache()
+    mem_before = torch.cuda.memory_allocated()
+    t0 = time.monotonic()
+    tok_path = os.path.join(ROOT, "resources", "tokenizer", "dv_bpe_16k.json")
+    eng = LLMEngine(EngineConfig(
+        model="dv-base", tokenizer=tok_path, checkpoint_dir=None,
+        device="cuda", max_slots=8, num_pages=1024, page_size=64,
+        max_pages_per_seq=32, decode_steps_per_call=16,
+        chunked_prefill=True, prefill_chunk_size=256, json_dfa=True,
+        warmup=True, seed=SEED))
+    t_boot = time.monotonic() - t0
+    try:
+        eng.start()
+        t_warm = time.monotonic() - t0 - t_boot
+        tok = eng.tokenizer
+        sessions = _interview_sessions(tok)
+
+        def turn(i, t):
+            res = eng.submit_tokens(
+                sessions[i][t], max_tokens=128, temperature=0.0,
+                json_mode=True, prefix_key=f"sess-{i}").wait(600)
+            if res is None or not res.ok:
+                raise AssertionError(f"session {i} turn {t + 1}: {res}")
+            return res
+
+        flash_attention.launches = 0
+        paged_attention_update.launches = 0
+        paged_chunk_attention.launches = 0
+        waves = []
+        t_serve = time.monotonic()
+        for t in range(3):
+            with concurrent.futures.ThreadPoolExecutor(4) as ex:
+                waves.append(list(ex.map(lambda i: turn(i, t), range(4))))
+        text_g, meta_g = eng.generate_text(
+            tok.decode(sessions[1][2]) + "\n请给出下一步访谈建议。",
+            max_tokens=128, temperature=0.0, json_mode=True, timeout=600,
+            prefix_key="sess-1")
+        serve_s = time.monotonic() - t_serve
+        launches = {"flash_fwd": flash_attention.launches,
+                    "paged_decode_update": paged_attention_update.launches,
+                    "paged_chunk": paged_chunk_attention.launches}
+        if launches["paged_chunk"] <= 0:
+            raise AssertionError(f"the chunk kernel was not launched: "
+                                 f"{launches}")
+        prefix = eng.stats()["prefix_cache"]
+        outputs = [tok.decode(r.token_ids) for w in waves for r in w]
+        for text in outputs + [text_g]:
+            json.loads(text)  # raises on unparseable output
+        if prefix["hits"] < 8 or prefix["tokens_saved"] <= 0:
+            raise AssertionError(f"prefix cache did not hit: {prefix}")
+
+        # warm (resumed) session 0 turn 3 against a cold rerun, alone
+        warm = waves[2][0].token_ids
+        cold = eng.submit_tokens(sessions[0][2], max_tokens=128,
+                                 temperature=0.0, json_mode=True).wait(600)
+        if cold is None or not cold.ok:
+            raise AssertionError(f"cold rerun failed: {cold}")
+        diverge = next((k for k, (a, b) in enumerate(zip(warm, cold.token_ids))
+                        if a != b), None)
+        if diverge is None and len(warm) != len(cold.token_ids):
+            diverge = min(len(warm), len(cold.token_ids))
+
+        # logits of session 0's turn-3 prompt: chunks of 256 from 0, and a
+        # resume at the page boundary of turn 2's cached head
+        cfg, params = eng.model_cfg, eng.runner.params
+        ids = sessions[0][2]
+        head_n = len(sessions[0][1]) // 64 * 64
+        want = model_lib.forward_train(
+            params, torch.tensor([ids], dtype=torch.int32, device="cuda"),
+            cfg=cfg)[0, -1]
+        logit_tol = 0.05 * want.abs().max().item() + 0.05
+        logit_err = {}
+        for name, head in (("chunked_from_0", 0), ("resume", head_n)):
+            got = _chunked_logits(model_lib, params, cfg, ids, head)
+            logit_err[name] = (got - want).abs().max().item()
+            if not logit_err[name] <= logit_tol:
+                raise AssertionError(f"{name} logits vs forward_train: "
+                                     f"{logit_err[name]} > {logit_tol}")
+
+        def ttft(results):
+            v = sorted(r.queue_wait_ms + r.prefill_ms for r in results)
+            return {"p50": v[len(v) // 2], "max": v[-1], "n": len(v)}
+
+        completion = (sum(len(r.token_ids) for w in waves for r in w)
+                      + meta_g["completion_tokens"])
+        stats = eng.stats()
+        out = {
+            "phase": "engine_prefix", "model": cfg.name,
+            "weights": f"random (seed {SEED})", "chunked_prefill": True,
+            "prefill_chunk_size": 256, "mem_before_boot_gb": mem_before / 1e9,
+            "boot_s": t_boot, "warmup_s": t_warm,
+            "requests": len(outputs) + 1, "json_parsed": len(outputs) + 1,
+            "prompt_tokens": [[len(x) for x in s] for s in sessions],
+            "prefix_cache": prefix, "launches": launches,
+            "ttft_ms_turn1": ttft(waves[0]),
+            "ttft_ms_turns2_3": ttft(waves[1] + waves[2]),
+            "prefill_ms_turn1": [r.prefill_ms for r in waves[0]],
+            "prefill_ms_turns2_3": [r.prefill_ms for r in waves[1] + waves[2]],
+            "completion_tokens": completion, "serve_s": serve_s,
+            "tokens_per_s": completion / serve_s,
+            "decode_time_s": stats["decode_time_s"],
+            "decode_steps": stats["decode_steps"],
+            "warm_equals_cold": diverge is None,
+            "warm_cold_first_divergence": diverge,
+            "logit_err": logit_err, "logit_tol": logit_tol,
+            "resume_head_tokens": head_n,
+        }
+    finally:
+        eng.shutdown()
+    out["seconds"] = time.monotonic() - t0
+    emit(out)
+    return out
+
+
 KERNELS = {
     "flash_fwd": {
         "source": "deepvision_tpu_torch/engine/kernels/csrc/flash_fwd.cu",
@@ -392,6 +688,10 @@ KERNELS = {
     "paged_decode_update": {
         "source": "deepvision_tpu_torch/engine/kernels/csrc/paged_decode.cu",
         "replaces": "deepvision_tpu/engine/kernels/paged_attention.py:223",
+    },
+    "paged_chunk": {
+        "source": "deepvision_tpu_torch/engine/kernels/csrc/paged_chunk.cu",
+        "replaces": "deepvision_tpu/engine/kernels/paged_chunk.py:31",
     },
 }
 
@@ -409,9 +709,13 @@ def main() -> int:
     phase_build()
     main_cases = phase_kernels()
     eng = phase_engine()
+    eng_prefix = phase_engine_prefix()
+    # each kernel's launches come from the engine phase whose path it is
+    launches = {**eng["launches"],
+                "paged_chunk": eng_prefix["launches"]["paged_chunk"]}
     emit({"kernels": [
         {"name": name, "route": "cuda", **KERNELS[name],
-         "launches": eng["launches"][name],
+         "launches": launches[name],
          "max_abs_err": main_cases[name]["max_abs_err"],
          "ms": main_cases[name]["ms"],
          "plain_ms": main_cases[name]["plain_ms"],

@@ -40,10 +40,16 @@ class EngineConfig:
     page_size: int = 64
     max_pages_per_seq: int = 64
     max_pending: int = 64
+    prefills_per_step: int = 1
     # fresh prompts admitted in one batched prefill (padded to powers of 2)
     prefill_batch_max: int = 4
     strict_priority: bool = False
     decode_steps_per_call: int = 1
+    # Chunked prefill (and the prefix cache, which needs it): prefix-cache
+    # resumes and long prompts prefill in chunks of prefill_chunk_size
+    # through the paged chunk kernel; fresh prompts still prefill batched.
+    chunked_prefill: bool = False
+    prefill_chunk_size: int = 256
     seed: int = 0
     # Grammar-constrained decoding (engine/constrained.py) for json_mode
     # requests, when the [states, vocab] table is small enough.
@@ -56,7 +62,6 @@ class EngineConfig:
     # Settings of the JAX package this slice has not ported: anything but
     # the defaults raises NotImplementedError.
     tp: int = 1
-    chunked_prefill: bool = False
     quantize: str = ""
     kv_quantize: str = ""
     fuse_projections: bool = False
@@ -65,8 +70,6 @@ class EngineConfig:
 
 _NOT_PORTED = (
     ("tp", 1, "tensor parallelism comes with the multi-device slice"),
-    ("chunked_prefill", False,
-     "chunked prefill and the prefix cache come in the next slice"),
     ("quantize", "", "weight-only int8 comes in a later slice"),
     ("kv_quantize", "", "engine-level int8 KV (with calibrate_kv_scales) "
                         "comes in a later slice"),
@@ -130,6 +133,8 @@ class LLMEngine:
             device=self.device,
             max_slots=cfg.max_slots,
             rng_seed=cfg.seed,
+            chunked_prefill=cfg.chunked_prefill,
+            prefill_chunk_size=cfg.prefill_chunk_size,
             batch_buckets=cfg.batch_buckets or None,
             dfa_table=(self.json_dfa.table
                        if self.json_dfa is not None else None),
@@ -142,6 +147,7 @@ class LLMEngine:
             self.allocator,
             max_slots=cfg.max_slots,
             max_pending=cfg.max_pending,
+            prefills_per_step=cfg.prefills_per_step,
             strict_priority=cfg.strict_priority,
             decode_steps_per_call=cfg.decode_steps_per_call,
             dfa=self.json_dfa,
@@ -162,17 +168,23 @@ class LLMEngine:
                 self._started = True
 
     def _warmup(self) -> None:
-        """One padded prefill per batch bucket and one decode call, into
-        freshly allocated pages that are freed again."""
+        """One padded prefill per batch bucket, one chunked prefill when the
+        runner is chunked (so the chunk kernel is built and launched before
+        traffic) and one decode call, into freshly allocated pages that are
+        freed again."""
         t0 = time.monotonic()
         runner, alloc = self.runner, self.allocator
         page = self.cache_cfg.page_size
+        warmed_chunked = not self.cfg.chunked_prefill
         for bucket in runner.batch_buckets:
             n = bucket - 1
             pages = alloc.try_alloc(-(-n // page))
             if pages is None:
                 break
             try:
+                if not warmed_chunked:
+                    runner.prefill([1] * n, pages)
+                    warmed_chunked = True
                 runner.prefill_batch([[1] * n], [pages])
             finally:
                 alloc.free(pages)
@@ -216,9 +228,14 @@ class LLMEngine:
         priority: int = HIGH,
         timeout: Optional[float] = 120.0,
         request_id: Optional[str] = None,
+        prefix_key: Optional[str] = None,
         json_mode: bool = False,
     ):
         """Blocking text generation.  Returns ``(text, meta dict)``.
+
+        ``prefix_key`` (a session id) lets the request share the KV pages
+        of a cached prompt head (chunked prefill only); None bypasses the
+        prefix cache.
 
         Raises TimeoutError if the deadline expires (the request is
         cancelled engine-side so its slot frees on the next step).
@@ -238,6 +255,7 @@ class LLMEngine:
             priority=priority,
             deadline_s=timeout,
             request_id=request_id,
+            prefix_key=prefix_key,
             json_mode=json_mode and self.json_dfa is not None,
         )
         result = req.wait(timeout)
@@ -274,7 +292,7 @@ class LLMEngine:
 
     def stats(self) -> dict:
         s = self.scheduler
-        return {
+        out = {
             "model": self.model_cfg.name,
             "queues": s.queue_depths(),
             "tokens_generated": s.tokens_generated,
@@ -283,3 +301,6 @@ class LLMEngine:
             "requests_finished": s.requests_finished,
             "rejected_overload": s.rejected_overload,
         }
+        if s.prefix_cache is not None:
+            out["prefix_cache"] = s.prefix_cache.stats()
+        return out

@@ -84,32 +84,64 @@ def quantize_rows(x: torch.Tensor, scale: torch.Tensor,
 
 
 class PageAllocator:
-    """Thread-safe allocator over the shared page pool.
+    """Thread-safe refcounting allocator over the shared page pool.
 
-    Page 0 is never handed out (trash page).  The scheduler allocates at
-    admission and decode growth, and frees at retirement.  (The JAX
-    package's refcounts exist for its prefix cache, which this package
-    does not have yet.)
+    Page 0 is never handed out (trash page).  Pages are refcounted so the
+    prefix cache can share fully written pages across sequences: a shared
+    page returns to the free list only when its last reference drops.
+    The scheduler allocates at admission and decode growth, and frees at
+    retirement.
     """
 
     def __init__(self, num_pages: int):
         self._lock = threading.Lock()
         self._free: List[int] = list(range(num_pages - 1, 0, -1))
+        self._refs: dict = {}
+        self.num_pages = num_pages
 
     def available(self) -> int:
         with self._lock:
             return len(self._free)
 
-    def try_alloc(self, n: int):
-        """``n`` page ids, or None when fewer are free."""
+    def alloc(self, n: int) -> List[int]:
+        """``n`` page ids with one reference each; raises MemoryError when
+        fewer are free."""
         with self._lock:
             if n > len(self._free):
-                return None
-            return [self._free.pop() for _ in range(n)]
+                raise MemoryError(
+                    f"KV page pool exhausted: want {n}, have {len(self._free)}")
+            pages = [self._free.pop() for _ in range(n)]
+            for p in pages:
+                self._refs[p] = 1
+        return pages
+
+    def try_alloc(self, n: int):
+        """``n`` page ids, or None when fewer are free."""
+        try:
+            return self.alloc(n)
+        except MemoryError:
+            return None
+
+    def share(self, pages: List[int]) -> None:
+        """Add a reference to already allocated pages (prefix reuse)."""
+        with self._lock:
+            for p in pages:
+                if p > 0:
+                    self._refs[p] = self._refs.get(p, 0) + 1
 
     def free(self, pages: List[int]) -> None:
+        """Drop one reference per page; a page whose last reference drops
+        goes back to the free list."""
         with self._lock:
-            self._free.extend(p for p in pages if p > 0)
+            for p in pages:
+                if p <= 0:
+                    continue
+                refs = self._refs.get(p, 1) - 1
+                if refs <= 0:
+                    self._refs.pop(p, None)
+                    self._free.append(p)
+                else:
+                    self._refs[p] = refs
 
 
 def pages_needed(seq_len: int, page_size: int) -> int:
@@ -158,3 +190,30 @@ def write_decode_token(k_pages_l, v_pages_l, k_new, v_new, block_tables,
     off = positions % P
     k_pages_l[:, page, off] = k_new.transpose(0, 1).to(k_pages_l.dtype)
     v_pages_l[:, page, off] = v_new.transpose(0, 1).to(v_pages_l.dtype)
+
+
+def write_chunk_tokens(k_pages_l, v_pages_l, k_new, v_new, block_tables,
+                       positions, seq_lens, k_scale=None,
+                       v_scale=None) -> None:
+    """Scatter a prefill chunk's K/V rows into one layer's pools, in place.
+
+    ``k_new``/``v_new``: ``[B, C, KV, HD]``; ``block_tables``: ``[B, MP]``;
+    ``positions``: ``[B, C]`` absolute token positions; ``seq_lens``:
+    ``[B]`` prompt lengths.  Rows at ``positions >= seq_lens`` (the padded
+    tail of the last chunk) go to trash page 0, offset 0, never to a real
+    page, so a chunk never touches pages past its own prompt.
+    """
+    if k_pages_l.dtype == torch.int8:
+        k_new = quantize_rows(k_new, k_scale, k_new.dim() - 2)
+        v_new = quantize_rows(v_new, v_scale, v_new.dim() - 2)
+    P = k_pages_l.shape[2]
+    MP = block_tables.shape[1]
+    positions = positions.long()
+    valid = positions < seq_lens.long()[:, None]
+    slot = (positions // P).clamp(0, MP - 1)
+    pages = torch.gather(block_tables.long(), 1, slot)
+    pages = torch.where(valid, pages, torch.zeros_like(pages))
+    offs = torch.where(valid, positions % P, torch.zeros_like(positions))
+    # [B, C, KV, HD] -> [KV, B, C, HD]
+    k_pages_l[:, pages, offs] = k_new.permute(2, 0, 1, 3).to(k_pages_l.dtype)
+    v_pages_l[:, pages, offs] = v_new.permute(2, 0, 1, 3).to(v_pages_l.dtype)

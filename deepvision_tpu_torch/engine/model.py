@@ -5,8 +5,9 @@ Same parameter tree and the same bf16 rounding points as the JAX package's
 attention out-projection, the MLP down-projection and the logits are
 computed in float32 from bf16 operands, RMSNorm, RoPE and SiLU run in
 float32.  Attention goes through the kernels package: the flash kernel for
-prefill, the fused paged kernel for decode (each runs its plain version on
-CPU tensors).  The forwards write the KV pools in place.
+batched prefill, the paged chunk kernel for chunked prefill, the fused
+paged kernel for decode (each runs its plain version on CPU tensors).  The
+forwards write the KV pools in place.
 """
 
 from __future__ import annotations
@@ -21,7 +22,13 @@ from deepvision_tpu_torch.engine.kernels.flash_attention import (
 from deepvision_tpu_torch.engine.kernels.paged_attention import (
     paged_attention_update,
 )
-from deepvision_tpu_torch.engine.kv_cache import write_prefill_pages
+from deepvision_tpu_torch.engine.kernels.paged_chunk import (
+    paged_chunk_attention,
+)
+from deepvision_tpu_torch.engine.kv_cache import (
+    write_chunk_tokens,
+    write_prefill_pages,
+)
 
 
 # ---------------------------------------------------------------------------
@@ -153,6 +160,51 @@ def forward_prefill(params, cache, tokens, seq_lens, prefill_pages, *,
         x = x + _mlp(rms_norm(x, blk["ln2"], cfg.rms_eps), blk)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
     last = x[torch.arange(B, device=x.device), seq_lens.long() - 1]
+    return _logits(last, params, cfg)
+
+
+@torch.no_grad()
+def forward_prefill_chunk(params, cache, tokens, chunk_starts, seq_lens,
+                          block_tables, *, cfg: ModelConfig):
+    """One chunk of chunked prefill: write the chunk's K/V rows, then attend
+    over every page up to each query's position.
+
+    Args:
+      tokens: ``[B, C]`` int32 this chunk's tokens (0-padded tail).
+      chunk_starts: ``[B]`` int32 absolute position of ``tokens[:, 0]``.
+      seq_lens: ``[B]`` int32 total prompt lengths.
+      block_tables: ``[B, MAX_PAGES]`` int32.
+
+    Returns ``last_logits [B, V]`` (float32) of the row at
+    ``seq_lens - 1`` (meaningful on a prompt's last chunk); the pools are
+    updated in place.
+    """
+    B, C = tokens.shape
+    HD = cfg.head_dim
+    x = _scaled_embed(params, tokens, cfg)
+    positions = (chunk_starts.long()[:, None]
+                 + torch.arange(C, device=tokens.device)[None, :])
+    rope = rope_tables(positions, HD, cfg.rope_theta)
+    chunk_end = torch.minimum(chunk_starts + C, seq_lens).to(torch.int32)
+    for i in range(cfg.n_layers):
+        blk = _layer(params, i)
+        h = rms_norm(x, blk["ln1"], cfg.rms_eps)
+        q, k, v = _qkv_proj(h, blk)
+        q = apply_rope(q.reshape(B, C, -1, HD), rope)
+        k = apply_rope(k.reshape(B, C, -1, HD), rope)
+        v = v.reshape(B, C, -1, HD)
+        ksc, vsc = _kv_scales(cache, i)
+        write_chunk_tokens(cache["k"][i], cache["v"][i], k, v, block_tables,
+                           positions, seq_lens, k_scale=ksc, v_scale=vsc)
+        attn = paged_chunk_attention(
+            q.contiguous(), cache["k"][i], cache["v"][i], block_tables,
+            chunk_starts, chunk_end, k_scale=ksc, v_scale=vsc)
+        x = x + qdot(attn.reshape(B, C, -1), blk["wo"],
+                     torch.float32).to(x.dtype)
+        x = x + _mlp(rms_norm(x, blk["ln2"], cfg.rms_eps), blk)
+    x = rms_norm(x, params["final_norm"], cfg.rms_eps)
+    last_row = (seq_lens.long() - 1 - chunk_starts.long()).clamp(0, C - 1)
+    last = x[torch.arange(B, device=x.device), last_row]
     return _logits(last, params, cfg)
 
 

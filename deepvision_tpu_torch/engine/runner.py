@@ -6,13 +6,20 @@ scheduler calls:
 * ``prefill_batch(prompts, pages)`` — several fresh prompts in one padded
   batch (B padded to a power of two, S to one of ``batch_buckets``); their
   K/V pages are written and the first output token is sampled on the device.
+* ``prefill(tokens, pages, start_from=...)`` — one prompt.  With chunked
+  prefill it runs ``prefill_chunk_step`` chunk by chunk from ``start_from``
+  (a prefix-cache resume starts past the shared pages); without, it is a
+  one-prompt ``prefill_batch``.
+* ``prefill_chunk_step(...)`` — one chunk of ``prefill_chunk_size`` tokens;
+  the scheduler interleaves these with decode for long prompts.
 * ``decode(...)`` — ``n_steps`` decode steps for every slot, run as a
   Python loop whose tokens, grammar states and budgets stay on the device;
   the call syncs with the host once, to read the ``[n_steps, B]`` tokens.
 
 Inactive slots point at the trash page, so the decode batch has one fixed
-shape.  The pools are updated in place.  Chunked prefill (and the prefix
-cache that needs it) are not ported yet: ``chunked_prefill`` is False.
+shape.  The pools are updated in place, and every step runs on the
+device's current stream, so chunks and decode steps follow each other in
+the order they were issued.
 """
 
 from __future__ import annotations
@@ -42,8 +49,6 @@ def pick_bucket(n: int, buckets: Sequence[int] = PREFILL_BUCKETS) -> int:
 
 
 class ModelRunner:
-    chunked_prefill = False
-
     def __init__(
         self,
         cfg: ModelConfig,
@@ -53,11 +58,15 @@ class ModelRunner:
         device,
         max_slots: int = 16,
         rng_seed: int = 0,
+        chunked_prefill: bool = False,
+        prefill_chunk_size: int = 256,
         batch_buckets: Optional[Sequence[int]] = None,
         dfa_table=None,
         dfa_dist=None,
     ):
         self.device = torch.device(device)
+        self.chunked_prefill = chunked_prefill
+        self.prefill_chunk_size = prefill_chunk_size
         self.cfg = cfg
         self.cache_cfg = cache_cfg
         self.max_slots = max_slots
@@ -158,6 +167,91 @@ class ModelRunner:
                 budgets=self._tensor(fill(budgets, NO_BUDGET, np.int32),
                                      torch.int32))
         return tok.cpu().tolist()[:n_real]
+
+    def prefill(
+        self,
+        token_ids: Sequence[int],
+        page_ids: Sequence[int],
+        *,
+        temperature: float = 0.0,
+        top_k: int = 0,
+        top_p: float = 1.0,
+        start_from: int = 0,
+        dfa_state: int = 0,
+        budget: Optional[int] = None,
+    ) -> int:
+        """Prefill one prompt; returns the first sampled output token id.
+
+        ``start_from``: skip this many page-aligned tokens whose KV pages
+        are already written (a prefix-cache hit); needs chunked prefill.
+        ``dfa_state``: grammar state of the first sampled token (0 = FREE).
+        ``budget``: output-token budget including the first token.
+        """
+        if self.chunked_prefill:
+            n = len(token_ids)
+            C = self.prefill_chunk_size
+            tok = 0
+            for start in range(start_from, n, C):
+                # only the last chunk's sample is read: earlier chunks are
+                # only enqueued, so a prompt costs one host sync
+                tok = self.prefill_chunk_step(
+                    token_ids, page_ids, start, temperature=temperature,
+                    top_k=top_k, top_p=top_p, dfa_state=dfa_state,
+                    budget=budget, sync=start + C >= n)
+            return tok
+        if start_from:
+            raise ValueError("prefill: start_from needs chunked prefill")
+        return self.prefill_batch(
+            [token_ids], [page_ids], temperatures=[temperature],
+            top_ks=[top_k], top_ps=[top_p], dfa_states=[dfa_state],
+            budgets=[budget if budget else NO_BUDGET])[0]
+
+    def prefill_chunk_step(
+        self,
+        token_ids: Sequence[int],
+        page_ids: Sequence[int],
+        start: int,
+        *,
+        temperature: float = 0.0,
+        top_k: int = 0,
+        top_p: float = 1.0,
+        dfa_state: int = 0,
+        budget: Optional[int] = None,
+        sync: bool = True,
+    ):
+        """Run one chunk ``[start, start + C)`` of a prompt; returns the
+        token sampled from the chunk's last valid row (meaningful once the
+        prompt's last chunk has run).
+
+        ``sync=False`` returns that token as a ``[1]`` device tensor without
+        waiting for the device: chunks chain through the pools on the
+        current stream, and the caller reads only the last chunk's token.
+        """
+        n = len(token_ids)
+        C = self.prefill_chunk_size
+        MP = self.cache_cfg.max_pages_per_seq
+        bt = np.zeros((1, MP), dtype=np.int32)
+        bt[0, : min(len(page_ids), MP)] = np.asarray(page_ids[:MP],
+                                                     dtype=np.int32)
+        chunk = np.zeros((1, C), dtype=np.int32)
+        piece = np.asarray(token_ids[start:start + C], dtype=np.int32)
+        chunk[0, : len(piece)] = piece
+        with torch.no_grad():
+            logits = model_lib.forward_prefill_chunk(
+                self.params, self.cache, self._tensor(chunk, torch.int32),
+                self._tensor([start], torch.int32),
+                self._tensor([n], torch.int32),
+                self._tensor(bt, torch.int32), cfg=self.cfg)
+            tok, _ = sample_tokens_constrained(
+                logits, self._gen,
+                self._tensor([temperature], torch.float32),
+                self._tensor([top_k], torch.int32),
+                self._tensor([top_p], torch.float32),
+                self._tensor([dfa_state], torch.int32),
+                self._dfa_packed,
+                budgets=self._tensor([budget if budget else NO_BUDGET],
+                                     torch.int32))
+        return int(tok[0]) if sync else tok
 
     def decode(
         self,

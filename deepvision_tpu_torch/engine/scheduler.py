@@ -1,15 +1,21 @@
 """Continuous-batching scheduler with two priority classes.
 
-A copy of the JAX package's ``engine/scheduler.py`` without the branches
-this package has not ported yet (prefix cache, chunked prefill, pipelined
-decode chains).  One scheduler owns one ModelRunner.  The step loop:
+A copy of the JAX package's ``engine/scheduler.py`` without its pipelined
+decode chains.  One scheduler owns one ModelRunner.  The step loop:
 
 1. **Admit**: pop HIGH requests first (deadline-ordered), then LOW only when
-   no HIGH is waiting; fresh prompts prefill together in one padded batch
-   and each takes a decode slot + KV pages.
-2. **Decode**: one fixed-shape decode call over all slots (inactive slots
-   aim at the trash page), sampling on the device.
-3. **Retire**: EOS / max_tokens / page-exhaustion; pages freed, waiters
+   no HIGH is waiting; each request takes KV pages (with a chunked runner,
+   first the pages the prefix cache shares with its prompt) and a decode
+   slot.  Fresh prompts prefill together in one padded batch; a
+   prefix-cache hit resumes chunked prefill at the first page it does not
+   share; a prompt with more than ``interleave_min_tokens`` fresh tokens
+   becomes a prefill job.
+2. **Advance prefills**: prefill jobs run chunk by chunk, interleaved with
+   decode.
+3. **Decode**: one fixed-shape decode call over all slots (inactive slots
+   aim at the trash page), sampling on the device; K=1 while a prompt is
+   mid-prefill.
+4. **Retire**: EOS / max_tokens / page-exhaustion; pages freed, waiters
    signalled.
 
 The loop runs on a daemon thread from :meth:`start` until :meth:`shutdown`.
@@ -26,6 +32,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 
 from deepvision_tpu_torch.engine.kv_cache import PageAllocator, pages_needed
+from deepvision_tpu_torch.engine.prefix_cache import PrefixCache
 from deepvision_tpu_torch.engine.runner import ModelRunner
 
 HIGH = 0
@@ -71,8 +78,10 @@ class GenerationRequest:
         priority: int = HIGH,
         deadline_s: Optional[float] = None,
         request_id: Optional[str] = None,
+        prefix_key: Optional[str] = None,
         json_mode: bool = False,
     ):
+        self.prefix_key = prefix_key
         self.json_mode = json_mode
         if request_id is None:
             with GenerationRequest._counter_lock:
@@ -109,6 +118,21 @@ class GenerationRequest:
         self._done.set()
 
 
+class _PrefillJob:
+    """A prompt mid-prefill (chunked mode): advances chunk by chunk between
+    decode steps, so a long prompt never stalls the decode batch."""
+
+    __slots__ = ("req", "pages", "pos", "queue_wait_ms", "t0", "last_tok")
+
+    def __init__(self, req, pages, start_pos, queue_wait_ms):
+        self.req = req
+        self.pages = pages
+        self.pos = start_pos
+        self.queue_wait_ms = queue_wait_ms
+        self.t0 = time.monotonic()
+        self.last_tok = 0
+
+
 class _ActiveSeq:
     __slots__ = (
         "req", "slot", "tokens", "pages", "generated", "prefill_ms",
@@ -135,26 +159,31 @@ class ContinuousBatchingScheduler:
         *,
         max_slots: Optional[int] = None,
         max_pending: int = 64,
+        prefills_per_step: int = 1,
         strict_priority: bool = True,
         decode_steps_per_call: int = 1,
+        interleave_min_tokens: int = 4096,
         dfa=None,
         prefill_batch_max: int = 4,
     ):
-        if runner.chunked_prefill:
-            raise NotImplementedError(
-                "chunked prefill and the prefix cache come in a later slice")
         self.prefill_batch_max = max(1, prefill_batch_max)
         # Grammar DFA (engine/constrained.JsonTokenDfa) for json_mode
         # requests; None disables constrained decoding.
         self.dfa = dfa
+        # Prompts with fewer fresh (uncached) tokens than this prefill in
+        # one blocking call; longer ones become prefill jobs whose chunks
+        # interleave with decode.
+        self.interleave_min_tokens = interleave_min_tokens
         self.runner = runner
         self.alloc = allocator
         self.max_slots = max_slots or runner.max_slots
         self.max_pending = max_pending
+        self.prefills_per_step = prefills_per_step
         self.strict_priority = strict_priority
         self.decode_steps_per_call = max(1, decode_steps_per_call)
 
         self._queues = {HIGH: deque(), LOW: deque()}
+        self._prefilling: deque = deque()
         self._active: Dict[int, _ActiveSeq] = {}
         self._free_slots = list(range(self.max_slots - 1, -1, -1))
         self._lock = threading.Lock()
@@ -173,6 +202,9 @@ class ContinuousBatchingScheduler:
         cache_cfg = runner.cache_cfg
         self._page_size = cache_cfg.page_size
         self._max_pages_per_seq = cache_cfg.max_pages_per_seq
+        # only the chunked path can resume a prompt past shared pages
+        self.prefix_cache = (PrefixCache(allocator, cache_cfg.page_size)
+                             if runner.chunked_prefill else None)
 
     # ------------------------------------------------------------------
     # Public API
@@ -196,6 +228,7 @@ class ContinuousBatchingScheduler:
             return {
                 "high": len(self._queues[HIGH]),
                 "low": len(self._queues[LOW]),
+                "prefilling": len(self._prefilling),
                 "active": len(self._active),
                 "free_slots": len(self._free_slots),
                 "free_pages": self.alloc.available(),
@@ -268,39 +301,86 @@ class ContinuousBatchingScheduler:
         )
 
     def step(self) -> bool:
-        """One admit + decode cycle."""
+        """One admit + prefill-chunk + decode cycle."""
         admitted = self._admit()
+        prefilled = self._advance_prefills()
         decoded = self._decode_step()
-        return admitted or decoded
+        return admitted or prefilled or decoded
 
     # -- admission ------------------------------------------------------
 
     def _admit(self) -> bool:
-        """Admit waiting requests: fresh prompts prefill together in one
-        padded batch (runner.prefill_batch) — one dispatch for N prompts."""
+        """Admit waiting requests.
+
+        Fresh prompts prefill together in one padded batch
+        (runner.prefill_batch): one dispatch for N prompts.  Prefix-cache
+        resumes (start_from > 0) and long prompts take the chunked paths.
+        """
+        admitted = False
+        chunked = self.runner.chunked_prefill
         batch: List[tuple] = []  # (req, pages, queue_wait_ms)
-        while len(batch) < self.prefill_batch_max:
-            if len(self._free_slots) <= len(batch):
+        max_batch = max(self.prefill_batch_max, self.prefills_per_step)
+        while len(batch) < max_batch:
+            # count the slots already promised to in-flight prefills
+            if len(self._free_slots) <= len(self._prefilling) + len(batch):
                 break
             req = self._pop_next()
             if req is None:
                 break
+            n_prompt = len(req.prompt_tokens)
             need = pages_needed(
-                min(len(req.prompt_tokens) + req.max_tokens,
+                min(n_prompt + req.max_tokens,
                     self._max_pages_per_seq * self._page_size),
                 self._page_size,
             )
-            pages = self.alloc.try_alloc(need)
-            if pages is None:
+            shared_n, shared_pages = 0, []
+            if self.prefix_cache is not None:
+                shared_n, shared_pages = self.prefix_cache.lookup(
+                    req.prefix_key, req.prompt_tokens)
+            fresh = self.alloc.try_alloc(need - len(shared_pages))
+            if fresh is None and self.prefix_cache is not None:
+                # live requests outrank cold cache entries: drop LRU
+                # prefixes and retry before giving up
+                self.prefix_cache.evict_lru(need - len(shared_pages))
+                fresh = self.alloc.try_alloc(need - len(shared_pages))
+            if fresh is None:
                 # Not enough KV memory — push back and wait for retirements.
+                self.alloc.free(shared_pages)
                 with self._lock:
                     self._queues[req.priority].appendleft(req)
                 break
+            pages = shared_pages + fresh
             queue_wait_ms = (time.monotonic() - req.submitted_at) * 1e3
+            if chunked and n_prompt - shared_n > self.interleave_min_tokens:
+                # long prompt: its chunks advance alongside decode
+                self._prefilling.append(
+                    _PrefillJob(req, pages, shared_n, queue_wait_ms))
+                admitted = True
+                continue
+            if shared_n > 0:
+                # prefix resume: only the chunked path starts mid-prompt
+                t0 = time.monotonic()
+                try:
+                    first = self.runner.prefill(
+                        req.prompt_tokens, pages,
+                        temperature=req.temperature, top_k=req.top_k,
+                        top_p=req.top_p, start_from=shared_n,
+                        dfa_state=self._start_state(req),
+                        budget=req.max_tokens)
+                except Exception as e:  # noqa: BLE001 — engine must not die
+                    self.alloc.free(pages)
+                    req.finish(self._mk_result(
+                        req, [], "error", queue_wait_ms, 0, 0,
+                        error=f"{type(e).__name__}: {e}"))
+                    continue
+                prefill_ms = (time.monotonic() - t0) * 1e3
+                self._activate(req, pages, first, queue_wait_ms, prefill_ms)
+                admitted = True
+                continue
             batch.append((req, pages, queue_wait_ms))
 
         if not batch:
-            return False
+            return admitted
         t0 = time.monotonic()
         try:
             firsts = self.runner.prefill_batch(
@@ -331,6 +411,8 @@ class ContinuousBatchingScheduler:
 
     def _activate(self, req, pages, first_tok, queue_wait_ms,
                   prefill_ms) -> None:
+        if self.prefix_cache is not None and req.prefix_key:
+            self.prefix_cache.store(req.prefix_key, req.prompt_tokens, pages)
         slot = self._free_slots.pop()
         seq = _ActiveSeq(
             req, slot, list(req.prompt_tokens) + [first_tok], pages,
@@ -343,6 +425,58 @@ class ContinuousBatchingScheduler:
         self._active[slot] = seq
         if self._seq_finished(seq, first_tok):
             self._retire(seq, self._finish_reason(seq, first_tok))
+
+    def _advance_prefills(self) -> bool:
+        """Advance the oldest prefill job (chunked mode).
+
+        With no decode running it drains completely (the same TTFT as a
+        blocking prefill); while decode runs, a bounded number of chunks
+        run per step and decode drops to single-token steps, so the two
+        interleave finely.
+        """
+        if not self._prefilling:
+            return False
+        job = self._prefilling[0]
+        req = job.req
+        if req.cancelled.is_set() or (
+                req.deadline and time.monotonic() > req.deadline):
+            self._prefilling.popleft()
+            self.alloc.free(job.pages)
+            reason = "cancelled" if req.cancelled.is_set() else "timeout"
+            req.finish(self._mk_result(req, [], reason,
+                                       job.queue_wait_ms, 0, 0))
+            return True
+        if not self._free_slots:
+            return False  # wait for a retirement before finishing prefill
+        n = len(req.prompt_tokens)
+        C = self.runner.prefill_chunk_size
+        chunks_left = -(-(n - job.pos) // C)
+        budget = (chunks_left if not self._active
+                  else max(1, self.prefills_per_step * 2))
+        try:
+            while budget > 0 and job.pos < n:
+                # only the last chunk's token is read back: earlier chunks
+                # are enqueued without a host sync
+                job.last_tok = self.runner.prefill_chunk_step(
+                    req.prompt_tokens, job.pages, job.pos,
+                    temperature=req.temperature, top_k=req.top_k,
+                    top_p=req.top_p, dfa_state=self._start_state(req),
+                    budget=req.max_tokens, sync=job.pos + C >= n)
+                job.pos += C
+                budget -= 1
+        except Exception as e:  # noqa: BLE001 — engine must not die
+            self._prefilling.popleft()
+            self.alloc.free(job.pages)
+            req.finish(self._mk_result(
+                req, [], "error", job.queue_wait_ms, 0, 0,
+                error=f"{type(e).__name__}: {e}"))
+            return True
+        if job.pos >= n:
+            self._prefilling.popleft()
+            prefill_ms = (time.monotonic() - job.t0) * 1e3
+            self._activate(req, job.pages, job.last_tok,
+                           job.queue_wait_ms, prefill_ms)
+        return True
 
     # -- decode ---------------------------------------------------------
 
@@ -432,6 +566,10 @@ class ContinuousBatchingScheduler:
         if not self._active:
             return False
         K = self.decode_steps_per_call
+        if self._prefilling:
+            # single-token steps while prompts are mid-prefill, so waiting
+            # prompts advance about every step
+            K = 1
         batch, retired = self._gather_decode_batch(K)
         for seq in retired:
             self._retire(seq, "length")

@@ -135,7 +135,7 @@ def test_engine_raises_without_cuda_unless_asked_for_cpu():
 
 
 @pytest.mark.parametrize("setting", [
-    {"chunked_prefill": True}, {"tp": 2}, {"quantize": "int8"},
+    {"tp": 2}, {"quantize": "int8"},
     {"kv_quantize": "int8"}, {"fuse_projections": True},
     {"pipeline_decode": True},
 ])
