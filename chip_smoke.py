@@ -6,8 +6,10 @@ Phases, each printing one JSON line with its own seconds:
 
 1. device  — the card's name and power limit;
 2. build   — the CUDA kernels compiled from ``csrc/`` (nvcc + ctypes);
-3. kernels — every kernel of the serving path against its plain PyTorch
-   version on the card, at the main path's shapes (bf16 and int8 pools),
+3. kernels — every kernel of the serving and training paths against its
+   plain PyTorch version on the card, at the main paths' shapes (bf16 and
+   int8 pools; the backward kernels at the training shape, ragged, f32 and
+   head dims 32/64/256),
    with times for the kernel, the plain version and, where one exists, the
    PyTorch library call that computes the same function;
 4. engine  — ``LLMEngine.generate_text`` on dv-base at its full width and
@@ -25,8 +27,18 @@ Phases, each printing one JSON line with its own seconds:
    have been launched by the served traffic, and the last-position logits
    of a chunked prefill from 0 and of a resume from a page boundary must
    agree with ``forward_train``;
-6. the ``kernels`` line the benchmark contract reads;
-7. shutdown, then the last line ``{"ok": true, "device": {...}}``.
+6. train   — dv-base fine-tuning through the port's ``Trainer`` at its
+   full width and depth: float32 params (random, seed 0), bf16
+   activations, batch 8 x 2,049 tokens of seeded interview text through
+   the dv_bpe_16k tokenizer, ``train_model.py``'s optimizer chain, the
+   flash forward and both backward kernels.  The loss must be finite and
+   fall over 8 steps on the batch, each backward kernel must run 12 times
+   a step, one step at B=2 must agree with the plain attention through
+   autograd (loss and every gradient leaf), and ``save_npz`` ->
+   ``load_or_init`` must give back the same bits; one step is profiled;
+7. the card's name and power limit again, then the ``kernels`` line the
+   benchmark contract reads;
+8. shutdown, then the last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the script exits non-zero without the last
 line.  Without CUDA it exits 2 before any phase.
@@ -38,6 +50,7 @@ import concurrent.futures
 import gc
 import glob
 import json
+import math
 import os
 import subprocess
 import sys
@@ -134,6 +147,8 @@ def _flash_case(name, B, H, KV, S, HD, lens, dtype, gen, iters=20):
     if not err <= tol or not torch.isfinite(got).all():
         raise AssertionError(f"flash {name}: max_abs_err {err} > {tol}")
     ms = cuda_ms(lambda: fa.flash_attention(q, k, v, seq), iters)
+    ms_lse = cuda_ms(lambda: fa.flash_forward(q, k, v, seq, with_lse=True),
+                     iters)
     plain_ms = cuda_ms(lambda: fa.flash_attention_reference(q, k, v, seq),
                        max(2, iters // 5))
     idx = torch.arange(S, device=dev)
@@ -150,11 +165,113 @@ def _flash_case(name, B, H, KV, S, HD, lens, dtype, gen, iters=20):
     bound_ms, bound_by = bound(nbytes, flops, rate)
     out = {"case": name, "shape": [B, H, KV, S, HD], "seq_lens": lens,
            "dtype": str(dtype).split(".")[-1], "max_abs_err": err,
-           "tol": tol, "ms": ms, "plain_ms": plain_ms,
+           "tol": tol, "ms": ms, "ms_with_lse": ms_lse, "plain_ms": plain_ms,
            "library_ms": library_ms, "bound_ms": bound_ms,
            "bound_by": bound_by, "gflop": flops / 1e9}
     emit({"phase": "kernels", "kernel": "flash_fwd", **out})
     return out
+
+
+def _bwd_case(name, B, H, KV, S, HD, lens, dtype, gen, iters=10):
+    """The dQ and dK/dV kernels against their plain versions on the same
+    inputs (a cotangent that is nonzero on padded rows too; lse from the
+    forward kernel, itself held against the plain row logsumexp)."""
+    from deepvision_tpu_torch.engine.kernels import flash_attention as fa
+
+    dev = torch.device("cuda")
+    q = torch.randn(B, H, S, HD, generator=gen, device=dev).to(dtype)
+    k = torch.randn(B, KV, S, HD, generator=gen, device=dev).to(dtype)
+    v = torch.randn(B, KV, S, HD, generator=gen, device=dev).to(dtype)
+    g = torch.randn(B, H, S, HD, generator=gen, device=dev).to(dtype)
+    seq = torch.tensor(lens, dtype=torch.int32, device=dev)
+    out, lse = fa.flash_forward(q, k, v, seq, with_lse=True)
+    lse_err = (lse - fa.row_logsumexp_reference(q, k, seq)).abs().max().item()
+    # lse is O(10) and summed in another order: 1e-3 absolute
+    if not lse_err <= 1e-3:
+        raise AssertionError(f"flash lse {name}: max_abs_err {lse_err}")
+    delta = fa.flash_bwd_delta(out, g)
+    args = (q, k, v, seq, g, lse, delta)
+    got = {"flash_bwd_dq": (fa.flash_bwd_dq(*args),),
+           "flash_bwd_dkv": fa.flash_bwd_dkv(*args)}
+    want = {"flash_bwd_dq": (fa.flash_bwd_dq_reference(*args),),
+            "flash_bwd_dkv": fa.flash_bwd_dkv_reference(*args)}
+    torch.cuda.synchronize()
+    itemsize = q.element_size()
+    rate = H100_BF16_FLOP_S if dtype == torch.bfloat16 else H100_F32_FLOP_S
+    # dQ walks every row (padded rows too); dK/dV only rows < len
+    pairs_dq = sum(sum(min(r + 1, n) for r in range(S)) for n in lens)
+    pairs_dkv = sum(n * (n + 1) // 2 for n in lens)
+    work = {
+        "flash_bwd_dq": (3 * 2.0 * H * HD * pairs_dq,
+                         (3 * q.numel() + k.numel() + v.numel()) * itemsize
+                         + 8 * B * H * S + 4 * B),
+        "flash_bwd_dkv": (4 * 2.0 * H * HD * pairs_dkv,
+                          (2 * q.numel() + 4 * k.numel()) * itemsize
+                          + 8 * B * H * S + 4 * B),
+    }
+    fns = {"flash_bwd_dq": (fa.flash_bwd_dq, fa.flash_bwd_dq_reference),
+           "flash_bwd_dkv": (fa.flash_bwd_dkv, fa.flash_bwd_dkv_reference)}
+    # library yardstick: SDPA's backward alone (dQ, dK and dV together)
+    qg, kg, vg = (x.detach().requires_grad_(True) for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    if all(n == S for n in lens):
+        ref_out = sdpa(qg, kg, vg, is_causal=True, enable_gqa=True)
+    else:
+        idx = torch.arange(S, device=dev)
+        mask = ((idx[None, :] <= idx[:, None])[None]
+                & (idx[None, None, :] < seq.long()[:, None, None]))[:, None]
+        ref_out = sdpa(qg, kg, vg, attn_mask=mask, enable_gqa=True)
+    library_ms = cuda_ms(lambda: torch.autograd.grad(
+        ref_out, (qg, kg, vg), g, retain_graph=True), iters)
+    outs = {}
+    for kname in ("flash_bwd_dq", "flash_bwd_dkv"):
+        # bf16: both sides round one fp32 value per element, so they may
+        # land one bf16 step apart: 2^-7 of the output's largest gradient;
+        # fp32: summation order only (1e-4 of its largest gradient)
+        rel = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-4
+        err = scale = tol = 0.0
+        for a, b_ in zip(got[kname], want[kname]):
+            if not torch.isfinite(a).all():
+                raise AssertionError(f"{kname} {name}: non-finite output")
+            e = (a.float() - b_.float()).abs().max().item()
+            m = b_.float().abs().max().item()
+            if not e <= rel * max(m, 1.0):
+                raise AssertionError(f"{kname} {name}: max_abs_err {e} > "
+                                     f"{rel} x max(|plain| {m}, 1)")
+            err, scale = max(err, e), max(scale, m)
+            tol = max(tol, rel * max(m, 1.0))
+        kern, plain = fns[kname]
+        ms = cuda_ms(lambda: kern(*args), iters)
+        plain_ms = cuda_ms(lambda: plain(*args), max(2, iters // 5))
+        flops, nbytes = work[kname]
+        bound_ms, bound_by = bound(nbytes, flops, rate)
+        outs[kname] = {
+            "case": name, "shape": [B, H, KV, S, HD], "seq_lens": lens,
+            "dtype": str(dtype).split(".")[-1], "max_abs_err": err,
+            "max_abs_plain": scale, "tol": tol, "lse_err": lse_err,
+            "ms": ms, "plain_ms": plain_ms,
+            # SDPA gives dQ, dK and dV in one call: set it beside the sum
+            # of the two kernels
+            "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "gflop": flops / 1e9}
+        emit({"phase": "kernels", "kernel": kname, **outs[kname]})
+    return outs
+
+
+def bwd_cases(gen) -> dict:
+    """Every backward case; returns the main one, the training shape
+    (dv-base, B=8, S=2048, bf16, full lengths)."""
+    bf16 = torch.bfloat16
+    main = _bwd_case("train_b8_s2048", 8, 6, 2, 2048, 128, [2048] * 8, bf16,
+                     gen, iters=5)
+    _bwd_case("ragged_gqa", 4, 6, 2, 1024, 128, [1024, 901, 640, 300], bf16,
+              gen)
+    _bwd_case("f32", 2, 6, 2, 512, 128, [512, 333], torch.float32, gen)
+    _bwd_case("s200_partial_tiles", 2, 4, 2, 200, 64, [200, 150], bf16, gen)
+    _bwd_case("hd32", 2, 4, 2, 256, 32, [256, 131], bf16, gen)
+    _bwd_case("hd64_g8", 2, 8, 1, 256, 64, [256, 77], bf16, gen)
+    _bwd_case("hd256", 1, 8, 1, 512, 256, [390], bf16, gen)
+    return main
 
 
 def _decode_case(name, B, H, KV, HD, P, MP, lens, pool_dtype, gen,
@@ -338,6 +455,8 @@ def phase_kernels() -> dict:
                     [1024, 901, 640, 300], bf16, gen),
         _flash_case("b4_s2048", 4, 6, 2, 2048, 128,
                     [2048, 1500, 977, 300], bf16, gen, iters=10),
+        _flash_case("train_b8_s2048", 8, 6, 2, 2048, 128, [2048] * 8, bf16,
+                    gen, iters=10),
         _flash_case("b4_s256", 4, 6, 2, 256, 128, [256, 200, 77, 1], bf16,
                     gen),
         _flash_case("hd32", 2, 4, 2, 256, 32, [256, 131], bf16, gen),
@@ -357,9 +476,10 @@ def phase_kernels() -> dict:
         _decode_case("hd256", 2, 8, 1, 256, 64, 4, [256, 130], bf16, gen),
     ]
     chunk = chunk_cases(gen)
+    bwd = bwd_cases(gen)
     emit({"phase": "kernels_done", "seconds": time.monotonic() - t0})
     return {"flash_fwd": flash[0], "paged_decode_update": decode[0],
-            "paged_chunk": chunk}
+            "paged_chunk": chunk, **bwd}
 
 
 def _report_prompts(tokenizer, targets):
@@ -464,7 +584,9 @@ def phase_engine() -> dict:
         lens = torch.tensor([n], dtype=torch.int32, device="cuda")
         got = model_lib.forward_prefill(params, cache, toks, lens, pages,
                                         cfg=cfg)[0]
-        want = model_lib.forward_train(params, toks[:, :n], cfg=cfg)[0, -1]
+        with torch.no_grad():
+            want = model_lib.forward_train(params, toks[:, :n],
+                                           cfg=cfg)[0, -1]
         logit_err = (got - want).abs().max().item()
         # two bf16 paths through 12 layers that differ in attention
         # kernel, padding and GEMM shapes: allow 5% of the logit range
@@ -633,9 +755,10 @@ def phase_engine_prefix() -> dict:
         cfg, params = eng.model_cfg, eng.runner.params
         ids = sessions[0][2]
         head_n = len(sessions[0][1]) // 64 * 64
-        want = model_lib.forward_train(
-            params, torch.tensor([ids], dtype=torch.int32, device="cuda"),
-            cfg=cfg)[0, -1]
+        with torch.no_grad():
+            want = model_lib.forward_train(
+                params, torch.tensor([ids], dtype=torch.int32, device="cuda"),
+                cfg=cfg)[0, -1]
         logit_tol = 0.05 * want.abs().max().item() + 0.05
         logit_err = {}
         for name, head in (("chunked_from_0", 0), ("resume", head_n)):
@@ -680,6 +803,228 @@ def phase_engine_prefix() -> dict:
     return out
 
 
+def _train_batch(tokenizer, rows: int, row_len: int, seed: int):
+    """``[rows, row_len]`` token ids of seeded interview transcripts built
+    from the in-repo scenarios (question and answer per dimension),
+    tokenized with the BPE and joined by the end-of-turn id, as
+    ``train_model.py``'s ``load_tokens`` joins corpus documents."""
+    import random
+
+    rng = random.Random(seed)
+    files = sorted(glob.glob(os.path.join(ROOT, "resources", "scenarios",
+                                          "builtin", "*.json")))
+    if not files:
+        raise FileNotFoundError("resources/scenarios/builtin/*.json")
+    scenarios = []
+    for path in files:
+        with open(path, encoding="utf-8") as fh:
+            scenarios.append(json.load(fh))
+    ids = []
+    while len(ids) < rows * row_len:
+        sc = rng.choice(scenarios)
+        parts = [f"访谈主题：{sc['name']}\n{sc['description']}\n\n"]
+        for turn in range(rng.randint(4, 10)):
+            d = rng.choice(sc["dimensions"])
+            aspects = rng.sample(d["key_aspects"],
+                                 rng.randint(1, len(d["key_aspects"])))
+            parts.append(
+                f"问题{turn + 1}（{d['name']}）：请具体说明{d['description']}。"
+                f"\n回答：关于{'、'.join(aspects)}，目前第{rng.randint(1, 30)}"
+                f"轮访谈确认了现状与期望。\n")
+        ids.extend(tokenizer.encode("".join(parts)))
+        ids.append(tokenizer.eos_id)
+    return torch.tensor(ids[: rows * row_len],
+                        dtype=torch.int32).reshape(rows, row_len)
+
+
+def _flat(tree, prefix=""):
+    for name in sorted(tree):
+        leaf = tree[name]
+        if isinstance(leaf, dict):
+            yield from _flat(leaf, f"{prefix}{name}/")
+        else:
+            yield f"{prefix}{name}", leaf
+
+
+def _profile_step(fn, wall_ms: float) -> dict:
+    """Device time by kernel of one call of ``fn`` (torch.profiler), grouped
+    by what the kernels do, and the device's busy share of ``wall_ms``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        kernels[e.key] = kernels.get(e.key, 0.0) + us / 1e3
+    groups = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0,
+              "matmul": 0.0, "optimizer": 0.0, "other": 0.0}
+    for name, ms in kernels.items():
+        low = name.lower()
+        if "flash_fwd" in low:
+            groups["flash_fwd"] += ms
+        elif "flash_bwd_dq" in low:
+            groups["flash_bwd_dq"] += ms
+        elif "flash_bwd_dkv" in low:
+            groups["flash_bwd_dkv"] += ms
+        elif "gemm" in low or "cutlass" in low or "xmma" in low:
+            groups["matmul"] += ms
+        elif "multi_tensor" in low or "adam" in low:
+            groups["optimizer"] += ms
+        else:
+            groups["other"] += ms
+    total = sum(kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
+    return {"device_ms": total, "wall_ms": wall_ms,
+            "busy_share": total / wall_ms if wall_ms else None,
+            "groups_ms": groups,
+            "top_kernels_ms": [[name[:90], ms] for name, ms in top]}
+
+
+def phase_train() -> dict:
+    """dv-base fine-tuning steps through the port's Trainer (float32
+    params, bf16 activations, flash forward and backward kernels,
+    train_model.py's optimizer chain), random init from the seed."""
+    import tempfile
+
+    from deepvision_tpu_torch.engine import model as model_lib
+    from deepvision_tpu_torch.engine.config import get_model_config
+    from deepvision_tpu_torch.engine.kernels import flash_attention as fa
+    from deepvision_tpu_torch.engine.tokenizer import get_tokenizer
+    from deepvision_tpu_torch.engine.training import (
+        Trainer,
+        as_trainable,
+        cross_entropy_loss,
+        train_model_chain,
+    )
+    from deepvision_tpu_torch.engine.weights import (
+        astype,
+        count_params,
+        init_params,
+        load_or_init,
+        save_npz,
+    )
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    cfg = get_model_config("dv-base")
+    tok = get_tokenizer(os.path.join(ROOT, "resources", "tokenizer",
+                                     "dv_bpe_16k.json"))
+    B, S, steps, lr = 8, 2048, 8, 3e-4
+    batch = _train_batch(tok, B, S + 1, SEED).to("cuda")
+    t_data = time.monotonic() - t0
+    # train_model.py's chain as `--steps 8 --lr 3e-4` sets it up
+    warmup = min(200, max(1, steps // 10))
+    trainer = Trainer(cfg, tx=train_model_chain(lr, warmup,
+                                                max(steps, warmup + 1)),
+                      seed=SEED, param_dtype=torch.float32, use_kernel=True,
+                      device="cuda")
+    n_params = count_params(trainer.params)
+    counters = (fa.flash_attention, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    for fn in counters:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = [], []
+    for _ in range(steps):
+        t = time.monotonic()
+        losses.append(trainer.train_step_async(batch))
+        torch.cuda.synchronize()
+        step_ms.append((time.monotonic() - t) * 1e3)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = {"flash_fwd": fa.flash_attention.launches,
+                "flash_bwd_dq": fa.flash_bwd_dq.launches,
+                "flash_bwd_dkv": fa.flash_bwd_dkv.launches}
+    losses = [float(x) for x in losses]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall over {steps} steps on one "
+                             f"batch: {losses}")
+    for name, n in launches.items():
+        if n != cfg.n_layers * steps:
+            raise AssertionError(f"{name}: {n} launches in {steps} steps, "
+                                 f"expected {cfg.n_layers} per step")
+    steady_ms = sum(step_ms[1:]) / (steps - 1)
+    profile = _profile_step(lambda: trainer.train_step_async(batch),
+                            steady_ms)
+
+    # one step's loss and gradients at B=2: the kernels against the plain
+    # attention through autograd, from the same float32 params.  Both run
+    # bf16 activations and differ at their bf16 rounding points (the
+    # attention output summed in another order; dQ/dK/dV from lse and
+    # D = rowsum(dO * O_bf16) against autograd's softmax backward), each up
+    # to 2^-8 relative, compounded over 12 layers: the loss within 1e-3
+    # relative, each gradient leaf within 5e-2 relative L2 error.
+    tree = as_trainable(init_params(cfg, device="cuda", seed=SEED,
+                                    dtype=torch.float32), "cuda")
+    names, leaves = zip(*_flat(tree))
+    res = {}
+    for use_kernel in (True, False):
+        logits = model_lib.forward_train(tree, batch[:2, :-1], cfg=cfg,
+                                         use_kernel=use_kernel)
+        loss = cross_entropy_loss(logits, batch[:2, 1:])
+        del logits
+        res[use_kernel] = (loss.item(), torch.autograd.grad(loss, leaves))
+        del loss
+    loss_rel = abs(res[True][0] - res[False][0]) / abs(res[False][0])
+    grad_rel = {}
+    for name, a, b_ in zip(names, res[True][1], res[False][1]):
+        denom = b_.float().norm().item()
+        grad_rel[name] = ((a.float() - b_.float()).norm().item() / denom
+                          if denom else 0.0)
+    if not loss_rel <= 1e-3 or not max(grad_rel.values()) <= 5e-2:
+        raise AssertionError(f"kernel vs plain step at B=2: loss rel "
+                             f"{loss_rel}, grad rel {grad_rel}")
+    del res, tree, leaves
+
+    # save_npz -> load_or_init, as trained (float32) and as train_model.py
+    # saves it (bf16), into a temporary directory
+    ckpt = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for tag, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            tree = astype(trainer.params, dtype)
+            path = os.path.join(tmp, f"dv-base-{tag}.npz")
+            save_npz(path, tree)
+            back = dict(_flat(load_or_init(cfg, path, SEED, device="cuda")))
+            want = dict(_flat(tree))
+            ibits = torch.int32 if dtype == torch.float32 else torch.int16
+            if set(back) != set(want) or not all(
+                    back[n].dtype == dtype
+                    and torch.equal(back[n].view(ibits), want[n].view(ibits))
+                    for n in want):
+                raise AssertionError(f"checkpoint {tag}: load_or_init did "
+                                     f"not give back the saved bits")
+            ckpt[tag] = os.path.getsize(path) / 1e6
+    out = {
+        "phase": "train", "model": cfg.name, "params": n_params,
+        "weights": f"random (seed {SEED})", "batch": [B, S + 1],
+        "param_dtype": "float32", "act_dtype": "bfloat16",
+        "optimizer": f"train_model.py chain, lr {lr}, warmup {warmup}, "
+                     f"{steps} steps",
+        "losses": losses, "step_ms": step_ms, "ms_per_step": steady_ms,
+        "tokens_per_s": B * S / (steady_ms / 1e3),
+        "peak_mem_gb": peak_gb, "launches": launches,
+        "parity_b2": {"loss_rel": loss_rel, "loss_tol": 1e-3,
+                      "grad_rel_max": max(grad_rel.values()),
+                      "grad_tol": 5e-2, "grad_rel": grad_rel},
+        "checkpoint_mb": ckpt, "checkpoint_bit_equal": True,
+        "profile_one_step": profile, "data_s": t_data,
+    }
+    del trainer
+    out["seconds"] = time.monotonic() - t0
+    emit(out)
+    return out
+
+
 KERNELS = {
     "flash_fwd": {
         "source": "deepvision_tpu_torch/engine/kernels/csrc/flash_fwd.cu",
@@ -692,6 +1037,14 @@ KERNELS = {
     "paged_chunk": {
         "source": "deepvision_tpu_torch/engine/kernels/csrc/paged_chunk.cu",
         "replaces": "deepvision_tpu/engine/kernels/paged_chunk.py:31",
+    },
+    "flash_bwd_dq": {
+        "source": "deepvision_tpu_torch/engine/kernels/csrc/flash_bwd.cu",
+        "replaces": "deepvision_tpu/engine/kernels/flash_attention.py:223",
+    },
+    "flash_bwd_dkv": {
+        "source": "deepvision_tpu_torch/engine/kernels/csrc/flash_bwd.cu",
+        "replaces": "deepvision_tpu/engine/kernels/flash_attention.py:272",
     },
 }
 
@@ -710,9 +1063,16 @@ def main() -> int:
     main_cases = phase_kernels()
     eng = phase_engine()
     eng_prefix = phase_engine_prefix()
-    # each kernel's launches come from the engine phase whose path it is
+    train = phase_train()
+    # each kernel's launches come from the phase whose path it is
     launches = {**eng["launches"],
-                "paged_chunk": eng_prefix["launches"]["paged_chunk"]}
+                "paged_chunk": eng_prefix["launches"]["paged_chunk"],
+                "flash_bwd_dq": train["launches"]["flash_bwd_dq"],
+                "flash_bwd_dkv": train["launches"]["flash_bwd_dkv"]}
+    # the card's name and power limit again: the output has outgrown what
+    # a tail-limited log keeps, and its first lines fall out of it
+    print(dev["nvidia_smi"][0] if dev["nvidia_smi"] else
+          "nvidia-smi: no output", flush=True)
     emit({"kernels": [
         {"name": name, "route": "cuda", **KERNELS[name],
          "launches": launches[name],

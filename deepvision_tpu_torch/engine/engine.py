@@ -26,14 +26,16 @@ from deepvision_tpu_torch.engine.scheduler import (
     GenerationRequest,
 )
 from deepvision_tpu_torch.engine.tokenizer import get_tokenizer
-from deepvision_tpu_torch.engine.weights import init_params, load_npz
+from deepvision_tpu_torch.engine.weights import load_or_init
 
 
 @dataclasses.dataclass
 class EngineConfig:
     model: str = "dv-1b"
     tokenizer: str = "byte"
-    checkpoint_dir: Optional[str] = None   # a flat .npz file, or random init
+    # a flat .npz file; any other path, or None, boots random weights from
+    # seed (weights.load_or_init); an orbax directory raises
+    checkpoint_dir: Optional[str] = None
     device: str = "cuda"
     max_slots: int = 8
     num_pages: int = 2048
@@ -59,9 +61,21 @@ class EngineConfig:
     # the first request pays no lazy set-up (kernel build, allocator).
     warmup: bool = False
     batch_buckets: tuple = ()
+    # The JAX warmup's prefill sizes for its per-bucket prefill programs.
+    # The port's warmup runs batch_buckets, which every prefill pads to:
+    # only the default is accepted.
+    warmup_buckets: tuple = (128, 256, 512, 1024)
+    # Accepted for the JAX package's EngineConfig and meaningless here:
+    # Pallas interpret mode has no counterpart (a wrapper runs its plain
+    # version on CPU tensors, its CUDA kernel on CUDA tensors).
+    interpret: Optional[bool] = None
+    # Chained fused decode calls; read only by pipelined decode, which
+    # raises until it is ported.
+    max_chained_decodes: int = 4
     # Settings of the JAX package this slice has not ported: anything but
     # the defaults raises NotImplementedError.
     tp: int = 1
+    vocab_sharded: Optional[bool] = None
     quantize: str = ""
     kv_quantize: str = ""
     fuse_projections: bool = False
@@ -70,23 +84,28 @@ class EngineConfig:
 
 _NOT_PORTED = (
     ("tp", 1, "tensor parallelism comes with the multi-device slice"),
+    ("vocab_sharded", None, "the vocab-sharded embedding and logits come "
+                            "with the multi-device slice"),
     ("quantize", "", "weight-only int8 comes in a later slice"),
     ("kv_quantize", "", "engine-level int8 KV (with calibrate_kv_scales) "
                         "comes in a later slice"),
     ("fuse_projections", False, "projection fusion comes in a later slice"),
     ("pipeline_decode", False, "pipelined decode comes in a later slice"),
+    ("warmup_buckets", (128, 256, 512, 1024),
+     "the warmup runs the runner's batch_buckets, which every prefill pads "
+     "to; other warmup sizes have no counterpart"),
 )
 
 
 def resolve_device(device: str) -> torch.device:
-    """The engine's device; raises when CUDA is asked for and absent."""
+    """The device of an entry point (engine, trainer); raises when CUDA is
+    asked for and absent."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            "LLMEngine: CUDA is not available; pass device='cpu' to run "
-            "on the CPU")
+            "CUDA is not available; pass device='cpu' to run on the CPU")
     if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"LLMEngine: unsupported device {device!r}")
+        raise ValueError(f"unsupported device {device!r}")
     return dev
 
 
@@ -106,11 +125,8 @@ class LLMEngine:
             page_size=cfg.page_size,
             max_pages_per_seq=cfg.max_pages_per_seq,
         )
-        if cfg.checkpoint_dir:
-            params = load_npz(cfg.checkpoint_dir, device=self.device)
-        else:
-            params = init_params(self.model_cfg, device=self.device,
-                                 seed=cfg.seed)
+        params = load_or_init(self.model_cfg, cfg.checkpoint_dir, cfg.seed,
+                              device=self.device)
 
         self.json_dfa = None
         if (cfg.json_dfa

@@ -39,8 +39,17 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    # q, k, v, seq_lens, out, B, H, KV, S, HD, dtype, scale, stream
-    "dv_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+    # q, k, v, seq_lens, out, lse (or null), B, H, KV, S, HD, dtype, scale,
+    # stream
+    "dv_flash_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+    # q, k, v, dout, lse, delta, seq_lens, dq, B, H, KV, S, HD, dtype,
+    # scale, stream
+    "dv_flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _P,
+                        _I, _I, _I, _I, _I, _I, _F, _P],
+    # q, k, v, dout, lse, delta, seq_lens, dk, dv, B, H, KV, S, HD, dtype,
+    # scale, stream
+    "dv_flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                         _I, _I, _I, _I, _I, _I, _F, _P],
     # q, new_k, new_v, k_pages, v_pages, block_tables, seq_lens, k_scale,
     # v_scale, out, B, H, KV, N, P, MP, HD, q_dtype, pool_dtype, scale,
     # stream

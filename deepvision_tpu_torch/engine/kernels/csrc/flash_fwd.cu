@@ -6,6 +6,10 @@
 //   q [B, H, S, HD], k/v [B, KV, S, HD] (bf16 or f32), seq_lens [B] int32
 //   out[b, h, r] = softmax_c(q[b,h,r] . k[b,h/G,c] * HD^-0.5) @ v[b,h/G,c]
 //   over columns c <= r and c < seq_lens[b]; a row with no such column is 0.
+//   With a non-null lse [B, H, S] (float32) it also writes each row's
+//   logsumexp m + log(l) of the scaled scores (l = 0 counts as 1), which
+//   the backward kernels (flash_bwd.cu) read; it replaces the JAX
+//   package's separate XLA pass _row_logsumexp.  Serving passes null.
 //
 // Design: one block per (q tile of 64 rows, head, batch), 256 threads as a
 // 16 x 16 grid.  The block stages the scaled q tile in shared memory once,
@@ -41,7 +45,8 @@ template <typename T, int HD>
 __global__ void __launch_bounds__(NT)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const int* __restrict__ seq_lens,
-                 T* __restrict__ out, int H, int KV, int S, float scale) {
+                 T* __restrict__ out, float* __restrict__ lse, int H, int KV,
+                 int S, float scale) {
   using Tile = FlashTile<HD>;
   constexpr int BK = Tile::BK, QS = Tile::QS, PS = Tile::PS;
   constexpr int RQ = BQ / 16;   // rows per thread
@@ -177,11 +182,16 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < CD; ++j) dst[tx + 16 * j] = dv_from_f32<T>(acc[i][j] / l);
   }
+  if (lse != nullptr && tid < BQ && q_start + tid < S) {
+    const float l = s_l[tid];
+    lse[(static_cast<size_t>(b) * H + h) * S + q_start + tid] =
+        s_m[tid] + logf(l == 0.f ? 1.f : l);
+  }
 }
 
 template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, const int* seq_lens,
-           void* out, int B, int H, int KV, int S, float scale,
+           void* out, float* lse, int B, int H, int KV, int S, float scale,
            cudaStream_t stream) {
   auto kernel = flash_fwd_kernel<T, HD>;
   const int bytes = FlashTile<HD>::BYTES;
@@ -190,20 +200,20 @@ int launch(const void* q, const void* k, const void* v, const int* seq_lens,
   dim3 grid((S + BQ - 1) / BQ, H, B);
   kernel<<<grid, NT, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), seq_lens, static_cast<T*>(out), H, KV, S,
-      scale);
+      static_cast<const T*>(v), seq_lens, static_cast<T*>(out), lse, H, KV,
+      S, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int dispatch_hd(const void* q, const void* k, const void* v,
-                const int* seq_lens, void* out, int B, int H, int KV, int S,
-                int HD, float scale, cudaStream_t stream) {
+                const int* seq_lens, void* out, float* lse, int B, int H,
+                int KV, int S, int HD, float scale, cudaStream_t stream) {
   switch (HD) {
-    case 32: return launch<T, 32>(q, k, v, seq_lens, out, B, H, KV, S, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, seq_lens, out, B, H, KV, S, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, seq_lens, out, B, H, KV, S, scale, stream);
-    case 256: return launch<T, 256>(q, k, v, seq_lens, out, B, H, KV, S, scale, stream);
+    case 32: return launch<T, 32>(q, k, v, seq_lens, out, lse, B, H, KV, S, scale, stream);
+    case 64: return launch<T, 64>(q, k, v, seq_lens, out, lse, B, H, KV, S, scale, stream);
+    case 128: return launch<T, 128>(q, k, v, seq_lens, out, lse, B, H, KV, S, scale, stream);
+    case 256: return launch<T, 256>(q, k, v, seq_lens, out, lse, B, H, KV, S, scale, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -211,16 +221,17 @@ int dispatch_hd(const void* q, const void* k, const void* v,
 }  // namespace
 
 extern "C" int dv_flash_fwd(const void* q, const void* k, const void* v,
-                            const void* seq_lens, void* out, int B, int H,
-                            int KV, int S, int HD, int dtype, float scale,
-                            void* stream) {
+                            const void* seq_lens, void* out, void* lse,
+                            int B, int H, int KV, int S, int HD, int dtype,
+                            float scale, void* stream) {
   if (B <= 0 || S <= 0 || KV <= 0 || H % KV != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const int* lens = static_cast<const int*>(seq_lens);
+  float* row_lse = static_cast<float*>(lse);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == DV_BF16)
-    return dispatch_hd<__nv_bfloat16>(q, k, v, lens, out, B, H, KV, S, HD, scale, st);
+    return dispatch_hd<__nv_bfloat16>(q, k, v, lens, out, row_lse, B, H, KV, S, HD, scale, st);
   if (dtype == DV_F32)
-    return dispatch_hd<float>(q, k, v, lens, out, B, H, KV, S, HD, scale, st);
+    return dispatch_hd<float>(q, k, v, lens, out, row_lse, B, H, KV, S, HD, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

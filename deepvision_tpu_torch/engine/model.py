@@ -247,12 +247,18 @@ def forward_decode(params, cache, tokens, seq_lens, block_tables, *,
 # Full-sequence forward (no cache)
 # ---------------------------------------------------------------------------
 
-@torch.no_grad()
 def forward_train(params, tokens, *, cfg: ModelConfig,
-                  act_dtype=torch.bfloat16):
-    """Full-sequence forward returning ``[B, S, V]`` float32 logits, with
-    the plain attention (:func:`flash_attention_reference`).
-    ``act_dtype=torch.float32`` gives the JAX package's f32 parity mode."""
+                  act_dtype=torch.bfloat16, use_kernel: bool = False):
+    """Full-sequence forward returning ``[B, S, V]`` float32 logits;
+    differentiable in the params (the training step's forward).
+
+    ``use_kernel=True`` runs attention through :func:`flash_attention`
+    (the flash kernels, differentiable through their backward kernels);
+    ``False`` through the plain :func:`flash_attention_reference`, which
+    autograd differentiates densely.  ``act_dtype=torch.float32`` gives the
+    JAX package's f32 parity mode.  Callers that only score wrap it in
+    ``torch.no_grad()``."""
+    attn_fn = flash_attention if use_kernel else flash_attention_reference
     B, S = tokens.shape
     HD = cfg.head_dim
     x = _scaled_embed(params, tokens, cfg, act_dtype)
@@ -266,9 +272,9 @@ def forward_train(params, tokens, *, cfg: ModelConfig,
         q = apply_rope(q.reshape(B, S, -1, HD), rope)
         k = apply_rope(k.reshape(B, S, -1, HD), rope)
         v = v.reshape(B, S, -1, HD)
-        attn = flash_attention_reference(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            seq_lens)
+        attn = attn_fn(
+            q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
+            v.transpose(1, 2).contiguous(), seq_lens)
         attn = attn.transpose(1, 2).reshape(B, S, -1)
         x = x + qdot(attn, blk["wo"], torch.float32).to(x.dtype)
         x = x + _mlp(rms_norm(x, blk["ln2"], cfg.rms_eps), blk, act_dtype)

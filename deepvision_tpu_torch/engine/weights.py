@@ -8,7 +8,10 @@ and a test can hand the same numbers to both.
 
 from __future__ import annotations
 
+import io
 import math
+import os
+from typing import Optional
 
 import numpy as np
 import torch
@@ -97,6 +100,59 @@ def load_npz(path: str, *, device) -> dict:
                 node = node.setdefault(p, {})
             node[parts[-1]] = _to_tensor(arr, device, bits)
     return params
+
+
+def astype(params: dict, dtype) -> dict:
+    """Detached copies of a params tree's leaves in ``dtype``."""
+    return {name: (astype(leaf, dtype) if isinstance(leaf, dict)
+                   else leaf.detach().to(dtype))
+            for name, leaf in params.items()}
+
+
+def save_npz(path: str, params: dict) -> None:
+    """Write a flat ``.npz`` checkpoint in the JAX package's format:
+    ``blocks/wq`` style keys (sorted, as JAX flattens a dict), bf16 leaves
+    stored as their raw uint16 bits under a ``@bf16`` tag, other leaves as
+    they are.  ``load_npz`` here and in the JAX package read it back bit
+    for bit."""
+    flat = {}
+
+    def walk(node, prefix):
+        for name in sorted(node):
+            leaf = node[name]
+            key = f"{prefix}{name}"
+            if isinstance(leaf, dict):
+                walk(leaf, key + "/")
+                continue
+            t = leaf.detach().cpu().contiguous()
+            if t.dtype == torch.bfloat16:
+                flat[key + "@bf16"] = t.view(torch.int16).numpy().view(
+                    np.uint16)
+            else:
+                flat[key] = t.numpy()
+
+    walk(params, "")
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    buf = io.BytesIO()
+    np.savez(buf, **flat)
+    with open(path, "wb") as fh:
+        fh.write(buf.getvalue())
+
+
+def load_or_init(cfg: ModelConfig, checkpoint_dir: Optional[str],
+                 seed: int = 0, *, device) -> dict:
+    """Engine boot path, as the JAX package's ``load_or_init``: a flat
+    ``.npz`` file is loaded; a directory (an orbax checkpoint there) raises
+    NotImplementedError, since orbax is not ported; any other path, or
+    none, gives random weights from ``seed``."""
+    if checkpoint_dir and os.path.isfile(checkpoint_dir) and \
+            checkpoint_dir.endswith(".npz"):
+        return load_npz(checkpoint_dir, device=device)
+    if checkpoint_dir and os.path.isdir(checkpoint_dir):
+        raise NotImplementedError(
+            f"{checkpoint_dir!r} is a directory: orbax checkpoints are not "
+            f"ported; convert it to a flat .npz (save_npz)")
+    return init_params(cfg, device=device, seed=seed)
 
 
 def count_params(params: dict) -> int:

@@ -96,8 +96,9 @@ def test_forward_train_matches_jax(act):
     tdt = torch.float32 if act == "float32" else torch.bfloat16
     want = np.asarray(jmodel.forward_train(
         jp, jnp.asarray(tokens), cfg=TINY_TEST, act_dtype=jdt))
-    got = _np(tmodel.forward_train(tp, torch.from_numpy(tokens),
-                                   cfg=TINY_TEST, act_dtype=tdt))
+    with torch.no_grad():
+        got = _np(tmodel.forward_train(tp, torch.from_numpy(tokens),
+                                       cfg=TINY_TEST, act_dtype=tdt))
     tol = 1e-4 if act == "float32" else BF16_LOGIT_ATOL
     np.testing.assert_allclose(got, want, atol=tol, rtol=tol)
 
@@ -117,8 +118,9 @@ def test_dv_mini_teacher_forced_logits_match_jax():
     tp = tweights.load_npz(MINI_NPZ, device="cpu")
     want = np.asarray(jmodel.forward_train(jp, jnp.asarray(tokens),
                                            cfg=DV_MINI))
-    got = _np(tmodel.forward_train(tp, torch.from_numpy(tokens),
-                                   cfg=DV_MINI))
+    with torch.no_grad():
+        got = _np(tmodel.forward_train(tp, torch.from_numpy(tokens),
+                                       cfg=DV_MINI))
     scale = max(1.0, float(np.abs(want).max()))
     np.testing.assert_allclose(got, want, atol=BF16_LOGIT_ATOL * scale)
     agree = (got.argmax(-1) == want.argmax(-1)).mean()
@@ -266,8 +268,9 @@ def test_prefill_then_decode_equals_dense_forward():
             tp, cache, torch.from_numpy(seq_tokens[n + i: n + i + 1]),
             torch.tensor([n + i + 1], dtype=torch.int32),
             torch.from_numpy(bt), cfg=cfg)[0])
-    dense = tmodel.forward_train(tp, torch.from_numpy(seq_tokens[None]),
-                                 cfg=cfg)[0]
+    with torch.no_grad():
+        dense = tmodel.forward_train(tp, torch.from_numpy(seq_tokens[None]),
+                                     cfg=cfg)[0]
     for i, lg in enumerate(logits):
         np.testing.assert_allclose(_np(lg), _np(dense[n - 1 + i]),
                                    atol=BF16_LOGIT_ATOL)

@@ -262,8 +262,9 @@ def test_chunked_forward_equals_dense_forward():
         logits = tmodel.forward_prefill_chunk(
             tp, cache, torch.from_numpy(chunk), _i32([start]), _i32([n]), bt,
             cfg=cfg)
-    dense = tmodel.forward_train(tp, torch.from_numpy(prompt[None]),
-                                 cfg=cfg)[0, -1]
+    with torch.no_grad():
+        dense = tmodel.forward_train(tp, torch.from_numpy(prompt[None]),
+                                     cfg=cfg)[0, -1]
     np.testing.assert_allclose(_np(logits[0]), _np(dense),
                                atol=BF16_LOGIT_ATOL)
 
