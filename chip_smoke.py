@@ -9,9 +9,12 @@ Phases, each printing one JSON line with its own seconds:
 3. kernels — every kernel of the serving and training paths against its
    plain PyTorch version on the card, at the main paths' shapes (bf16 and
    int8 pools; the backward kernels at the training shape, ragged, f32 and
-   head dims 32/64/256),
-   with times for the kernel, the plain version and, where one exists, the
-   PyTorch library call that computes the same function;
+   head dims 32/64/256; the read-only paged attention and the (B, KV)-grid
+   decode update at the report lane's shape, ragged, int8, head dims
+   32/64/256 and the written row's three positions in a page, the update
+   also against the grid-"b" kernel), with times for the kernel, the plain
+   version and, where one exists, the PyTorch library call that computes
+   the same function;
 4. engine  — ``LLMEngine.generate_text`` on dv-base at its full width and
    depth (12 layers) with random weights from a seed and the dv_bpe_16k
    tokenizer: 8 concurrent json_mode report prompts of 300-900 tokens,
@@ -27,7 +30,21 @@ Phases, each printing one JSON line with its own seconds:
    have been launched by the served traffic, and the last-position logits
    of a chunked prefill from 0 and of a resume from a page boundary must
    agree with ``forward_train``;
-6. train   — dv-base fine-tuning through the port's ``Trainer`` at its
+6. paged_api — the kernels package's public paged attention
+   (``paged_attention``) and ``paged_attention_update(grid_mode="bkv")``
+   over 16 decode steps of dv-base's 12 layers at the report lane's shape:
+   the two must agree bit for bit, match the grid-"b" kernel, and launch
+   once per layer and step;
+7. gateway — the app's main path: ``build_gateway`` (dv-fast on the
+   question lanes, dv-base on the report lanes, the app's other defaults)
+   -> ``call_model`` for a question, a report draft and the session's
+   follow-up question (resumed through the prefix cache); every text must
+   parse, lanes, models and decode windows must be the app's, and the
+   flash, decode and chunk kernels must have run;
+8. gateway_int8 — the report draft again through a gateway with
+   ``ENGINE_KV_QUANTIZE=int8``: it must parse; the calibrated scales and
+   the first token that differs from the bf16 run are reported;
+9. train   — dv-base fine-tuning through the port's ``Trainer`` at its
    full width and depth: float32 params (random, seed 0), bf16
    activations, batch 8 x 2,049 tokens of seeded interview text through
    the dv_bpe_16k tokenizer, ``train_model.py``'s optimizer chain, the
@@ -36,9 +53,9 @@ Phases, each printing one JSON line with its own seconds:
    a step, one step at B=2 must agree with the plain attention through
    autograd (loss and every gradient leaf), and ``save_npz`` ->
    ``load_or_init`` must give back the same bits; one step is profiled;
-7. the card's name and power limit again, then the ``kernels`` line the
-   benchmark contract reads;
-8. shutdown, then the last line ``{"ok": true, "device": {...}}``.
+10. the card's name and power limit again, then the ``kernels`` line the
+   benchmark contract reads (seven kernels);
+11. shutdown, then the last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the script exits non-zero without the last
 line.  Without CUDA it exits 2 before any phase.
@@ -49,6 +66,7 @@ from __future__ import annotations
 import concurrent.futures
 import gc
 import glob
+import importlib
 import json
 import math
 import os
@@ -82,6 +100,29 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int) -> float:
+    """Device time of one ``fn()``: the sum of the kernels it launches
+    over ``iters`` calls (torch.profiler), per call.  Unlike
+    :func:`cuda_ms` it leaves out the host's launch cost, which bounds
+    back-to-back calls of a short kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            us = getattr(e, "self_device_time_total", None)
+            total += e.self_cuda_time_total if us is None else us
+    return total / 1e3 / iters
 
 
 def bound(bytes_moved: float, flops: float, flop_rate: float):
@@ -275,8 +316,9 @@ def bwd_cases(gen) -> dict:
 
 
 def _decode_case(name, B, H, KV, HD, P, MP, lens, pool_dtype, gen,
-                 iters=50):
-    from deepvision_tpu_torch.engine.kernels import paged_attention as pa
+                 iters=50, profiled=False):
+    pa = importlib.import_module(
+        "deepvision_tpu_torch.engine.kernels.paged_attention")
     from deepvision_tpu_torch.engine.kv_cache import quantize_rows
 
     dev = torch.device("cuda")
@@ -325,6 +367,9 @@ def _decode_case(name, B, H, KV, HD, P, MP, lens, pool_dtype, gen,
     plain_ms = cuda_ms(lambda: pa.paged_attention_update_reference(
         q, nk, nv, kp2, vp2, bt, seq, k_scale=ks, v_scale=vs),
         max(2, iters // 10))
+    dev_ms = device_ms(lambda: pa.paged_attention_update(
+        q, nk, nv, kp1, vp1, bt, seq, k_scale=ks, v_scale=vs),
+        iters) if profiled else None
     itemsize = kp.element_size()
     live = sum(lens)
     nbytes = (2 * q.numel() * 2 + 2 * nk.numel() * itemsize
@@ -334,10 +379,172 @@ def _decode_case(name, B, H, KV, HD, P, MP, lens, pool_dtype, gen,
     out = {"case": name, "shape": [B, H, KV, HD, P, MP], "seq_lens": lens,
            "pool_dtype": str(pool_dtype).split(".")[-1],
            "max_abs_err": err_active, "tol": tol, "ms": ms,
+           "device_ms": dev_ms,
            "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms,
            "bound_by": bound_by, "mbytes": nbytes / 1e6}
     emit({"phase": "kernels", "kernel": "paged_decode_update", **out})
     return out
+
+
+def _paged_case(name, write, B, H, KV, HD, P, MP, lens, pool_dtype, gen,
+                iters=50, inactive_trash=True, profiled=False):
+    """``paged_attention`` (#6, ``write=False``) or
+    ``paged_attention_update(grid_mode="bkv")`` (#7, ``write=True``)
+    against its plain version on the same inputs; #7 also against the
+    grid-"b" kernel (#1) on a copy of the same pools.  With
+    ``inactive_trash`` a len-1 slot is an inactive scheduler slot (block
+    table all trash page 0, output not compared for #7); without it every
+    slot owns real pages (the write-position cases)."""
+    pa = importlib.import_module(
+        "deepvision_tpu_torch.engine.kernels.paged_attention")
+    from deepvision_tpu_torch.engine.kv_cache import quantize_rows
+
+    dev = torch.device("cuda")
+    N = B * MP + 1
+    q = torch.randn(B, H, HD, generator=gen, device=dev).to(torch.bfloat16)
+    nk = torch.randn(B, KV, HD, generator=gen, device=dev).to(torch.bfloat16)
+    nv = torch.randn(B, KV, HD, generator=gen, device=dev).to(torch.bfloat16)
+    kf = torch.randn(KV, N, P, HD, generator=gen, device=dev)
+    vf = torch.randn(KV, N, P, HD, generator=gen, device=dev)
+    ks = vs = None
+    if pool_dtype == torch.int8:
+        ks = torch.full((KV,), 3.0 / 127, device=dev)
+        vs = torch.full((KV,), 3.0 / 127, device=dev)
+        kp, vp = quantize_rows(kf, ks, 0), quantize_rows(vf, vs, 0)
+    else:
+        kp, vp = kf.to(pool_dtype), vf.to(pool_dtype)
+    # each sequence owns MP distinct pages; entries past its live pages
+    # are 0 (the trash page), as in the scheduler's block tables
+    bt = (1 + torch.randperm(B * MP, generator=gen, device=dev)
+          ).reshape(B, MP).to(torch.int32)
+    for i, n in enumerate(lens):
+        bt[i, -(-n // P):] = 0
+        if inactive_trash and n == 1:
+            bt[i] = 0
+    seq = torch.tensor(lens, dtype=torch.int32, device=dev)
+    compared = [i for i, n in enumerate(lens)
+                if not (write and inactive_trash and n == 1)]
+    # bf16 outputs: both sides round one fp32 value (1 bf16 ulp of an O(1)
+    # output is 2^-8) after summing in another order
+    tol = 2e-2
+    out = {"case": name, "shape": [B, H, KV, HD, P, MP], "seq_lens": lens,
+           "pool_dtype": str(pool_dtype).split(".")[-1], "tol": tol}
+    if write:
+        kp1, vp1 = kp.clone(), vp.clone()
+        kp2, vp2 = kp.clone(), vp.clone()
+        kp3, vp3 = kp.clone(), vp.clone()
+        got, _, _ = pa.paged_attention_update(
+            q, nk, nv, kp1, vp1, bt, seq, k_scale=ks, v_scale=vs,
+            grid_mode="bkv")
+        want, _, _ = pa.paged_attention_update_reference(
+            q, nk, nv, kp2, vp2, bt, seq, k_scale=ks, v_scale=vs)
+        fused_b, _, _ = pa.paged_attention_update(
+            q, nk, nv, kp3, vp3, bt, seq, k_scale=ks, v_scale=vs)
+        torch.cuda.synchronize()
+        err_b = (got[compared].float()
+                 - fused_b[compared].float()).abs().max().item()
+        if not err_b <= tol:
+            raise AssertionError(f"paged_update_bkv {name}: against the "
+                                 f"grid-b kernel {err_b} > {tol}")
+        for a, b_, c_ in ((kp1, kp2, kp3), (vp1, vp2, vp3)):
+            if not (torch.equal(a[:, 1:], b_[:, 1:])
+                    and torch.equal(a[:, 1:], c_[:, 1:])):
+                raise AssertionError(f"paged_update_bkv {name}: pools "
+                                     f"differ outside page 0")
+        out["max_abs_err_vs_grid_b"] = err_b
+        kern = lambda: pa.paged_attention_update(  # noqa: E731
+            q, nk, nv, kp1, vp1, bt, seq, k_scale=ks, v_scale=vs,
+            grid_mode="bkv")
+        plain = lambda: pa.paged_attention_update_reference(  # noqa: E731
+            q, nk, nv, kp2, vp2, bt, seq, k_scale=ks, v_scale=vs)
+    else:
+        got = pa.paged_attention(q, kp, vp, bt, seq, k_scale=ks, v_scale=vs)
+        want = pa.paged_attention_reference(q, kp, vp, bt, seq, k_scale=ks,
+                                            v_scale=vs)
+        kern = lambda: pa.paged_attention(  # noqa: E731
+            q, kp, vp, bt, seq, k_scale=ks, v_scale=vs)
+        plain = lambda: pa.paged_attention_reference(  # noqa: E731
+            q, kp, vp, bt, seq, k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    err = (got[compared].float() - want[compared].float()).abs().max().item()
+    if not err <= tol or not torch.isfinite(got).all():
+        raise AssertionError(f"{'paged_update_bkv' if write else 'paged'} "
+                             f"{name}: max_abs_err {err} > {tol}")
+    ms = cuda_ms(kern, iters)
+    plain_ms = cuda_ms(plain, max(2, iters // 10))
+    out["device_ms"] = device_ms(kern, iters) if profiled else None
+    library_ms = None
+    if not write:
+        # library yardstick: SDPA on K/V already gathered dense (the
+        # gather is left out of its time), with a bool length mask
+        L = max(lens)
+
+        def dense(pool, scale):
+            x = pool.float() * (scale[:, None, None, None]
+                                if scale is not None else 1.0)
+            return (x[:, bt.long()].permute(1, 0, 2, 3, 4)
+                    .reshape(B, KV, MP * P, HD)[:, :, :L]
+                    .to(torch.bfloat16).contiguous())
+
+        kd, vd = dense(kp, ks), dense(vp, vs)
+        mask = (torch.arange(L, device=dev)[None, :]
+                < seq.long()[:, None])[:, None, None, :]
+        q4 = q[:, :, None, :]
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        library_ms = cuda_ms(
+            lambda: sdpa(q4, kd, vd, attn_mask=mask, enable_gqa=True), iters)
+    itemsize = kp.element_size()
+    live = sum(lens)
+    row = KV * HD * itemsize
+    # q read and out written; the live K/V rows read; for #7 this step's
+    # rows read (part of the live rows) and written once more into the
+    # pools; the live block-table entries, lengths and scales
+    nbytes = (2 * q.numel() * 2 + 2 * live * row
+              + (2 * B * row if write else 0)
+              + sum(-(-n // P) for n in lens) * 4 + 4 * B
+              + (8 * KV if ks is not None else 0))
+    flops = 4.0 * H * HD * live
+    bound_ms, bound_by = bound(nbytes, flops, H100_BF16_FLOP_S)
+    out.update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+               library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+               mbytes=nbytes / 1e6)
+    emit({"phase": "kernels",
+          "kernel": "paged_update_bkv" if write else "paged_attention",
+          **out})
+    return out
+
+
+def paged_cases(gen) -> dict:
+    """Every case of #6 (``paged_attention``) and #7
+    (``paged_attention_update(grid_mode="bkv")``); returns the main ones,
+    the report lane's shape (B=8, H=6, KV=2, HD=128, P=64, MP=32, every
+    len 1024, bf16 pools)."""
+    bf16, i8 = torch.bfloat16, torch.int8
+    ragged = [2048, 1, 64, 65, 700, 1024, 1500, 33]
+    main = {}
+    for write in (False, True):
+        key = "paged_update_bkv" if write else "paged_attention"
+        main[key] = _paged_case("main_b8_len1024", write, 8, 6, 2, 128, 64,
+                                32, [1024] * 8, bf16, gen, profiled=True)
+        _paged_case("b8_ragged", write, 8, 6, 2, 128, 64, 32, ragged, bf16,
+                    gen)
+        _paged_case("b8_ragged_int8", write, 8, 6, 2, 128, 64, 32, ragged, i8,
+                    gen)
+        _paged_case("hd32", write, 4, 4, 2, 32, 16, 8, [128, 1, 17, 100],
+                    bf16, gen, iters=20)
+        _paged_case("hd256_g8", write, 2, 8, 1, 256, 64, 4, [256, 130], bf16,
+                    gen, iters=20)
+        _paged_case("hd256_g8_int8", write, 2, 8, 1, 256, 64, 4, [256, 130],
+                    i8, gen, iters=20)
+        _paged_case("hd64", write, 2, 8, 2, 64, 16, 8, [100, 37], bf16, gen,
+                    iters=20)
+    # the written row at len 1, as the first row of a fresh page
+    # (len % P == 1) and as the last row of a page (len % P == 0)
+    for pool in (bf16, i8):
+        _paged_case(f"write_rows_{str(pool).split('.')[-1]}", True, 4, 6, 2,
+                    128, 64, 32, [1, 65, 128, 2048], pool, gen, iters=20,
+                    inactive_trash=False)
+    return main
 
 
 def _chunk_case(name, B, C, H, KV, HD, P, MP, starts, ends, pool_dtype, gen,
@@ -467,7 +674,7 @@ def phase_kernels() -> dict:
     ragged = [2048, 1, 64, 65, 700, 1024, 1500, 33]
     decode = [
         _decode_case("main_b8_len1024", 8, 6, 2, 128, 64, 32, [1024] * 8,
-                     bf16, gen),
+                     bf16, gen, profiled=True),
         _decode_case("b8_ragged", 8, 6, 2, 128, 64, 32, ragged, bf16, gen),
         _decode_case("b8_ragged_int8", 8, 6, 2, 128, 64, 32, ragged,
                      torch.int8, gen),
@@ -477,9 +684,10 @@ def phase_kernels() -> dict:
     ]
     chunk = chunk_cases(gen)
     bwd = bwd_cases(gen)
+    paged = paged_cases(gen)
     emit({"phase": "kernels_done", "seconds": time.monotonic() - t0})
     return {"flash_fwd": flash[0], "paged_decode_update": decode[0],
-            "paged_chunk": chunk, **bwd}
+            "paged_chunk": chunk, **bwd, **paged}
 
 
 def _report_prompts(tokenizer, targets):
@@ -803,6 +1011,261 @@ def phase_engine_prefix() -> dict:
     return out
 
 
+def phase_paged_api() -> dict:
+    """Kernels #6 and #7 through their own entry point, the kernels
+    package's public paged attention, driven as a caller would: 16 decode
+    steps over dv-base's 12 layers at the report lane's shape (B=8, H=6,
+    KV=2, HD=128, P=64, 32 pages per sequence, bf16 pools) from contexts of
+    600-950 tokens.  Each layer writes its step's row through
+    ``paged_attention_update(grid_mode="bkv")`` (#7) and reads the pools
+    back through ``paged_attention`` (#6); the same step runs through grid
+    "b" (#1) on a copy of the pools.  #6 must equal #7 bit for bit (one
+    kernel template over the same pools), #7 must agree with #1 and leave
+    the same pools outside trash page 0, and each entry point must have
+    launched once per layer and step."""
+    from deepvision_tpu_torch.engine.kernels import paged_attention
+
+    pa = importlib.import_module(
+        "deepvision_tpu_torch.engine.kernels.paged_attention")
+    t0 = time.monotonic()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 1)
+    B, H, KV, HD, P, MP, layers, steps = 8, 6, 2, 128, 64, 32, 12, 16
+    N = B * MP + 1
+    bf16 = torch.bfloat16
+    pools = [tuple(torch.randn(KV, N, P, HD, generator=gen, device=dev)
+                   .to(bf16) for _ in range(2)) for _ in range(layers)]
+    copies = [(k.clone(), v.clone()) for k, v in pools]
+    bt = (1 + torch.randperm(B * MP, generator=gen, device=dev)
+          ).reshape(B, MP).to(torch.int32)
+    seq = torch.tensor([600 + 50 * i for i in range(B)], dtype=torch.int32,
+                       device=dev)
+    paged_attention.launches = 0
+    pa.paged_attention_update.bkv_launches = 0
+    err_b, same_6_7 = 0.0, True
+    for _ in range(steps):
+        for (kp, vp), (kb, vb) in zip(pools, copies):
+            q = torch.randn(B, H, HD, generator=gen, device=dev).to(bf16)
+            nk = torch.randn(B, KV, HD, generator=gen, device=dev).to(bf16)
+            nv = torch.randn(B, KV, HD, generator=gen, device=dev).to(bf16)
+            out7, _, _ = pa.paged_attention_update(q, nk, nv, kp, vp, bt, seq,
+                                                   grid_mode="bkv")
+            out6 = paged_attention(q, kp, vp, bt, seq)
+            out1, _, _ = pa.paged_attention_update(q, nk, nv, kb, vb, bt, seq)
+            same_6_7 = same_6_7 and torch.equal(out6, out7)
+            err_b = max(err_b, (out7.float() - out1.float()).abs().max().item())
+        seq += 1
+    torch.cuda.synchronize()
+    launches = {"paged_attention": paged_attention.launches,
+                "paged_update_bkv": pa.paged_attention_update.bkv_launches}
+    if set(launches.values()) != {layers * steps}:
+        raise AssertionError(f"paged_api: launches {launches}, expected "
+                             f"{layers * steps} each")
+    if not same_6_7:
+        raise AssertionError("paged_api: paged_attention differs from the "
+                             "bkv update over the same pools")
+    # bf16 outputs of two kernels summing in another order (2^-8 of O(1))
+    if not err_b <= 2e-2:
+        raise AssertionError(f"paged_api: bkv against grid b {err_b}")
+    for (kp, vp), (kb, vb) in zip(pools, copies):
+        if not (torch.equal(kp[:, 1:], kb[:, 1:])
+                and torch.equal(vp[:, 1:], vb[:, 1:])):
+            raise AssertionError("paged_api: pools differ outside page 0")
+    out = {"phase": "paged_api", "shape": [B, H, KV, HD, P, MP],
+           "layers": layers, "steps": steps,
+           "start_lens": [600 + 50 * i for i in range(B)],
+           "launches": launches, "paged_equals_bkv": True,
+           "max_abs_err_bkv_vs_grid_b": err_b, "tol": 2e-2,
+           "seconds": time.monotonic() - t0}
+    emit(out)
+    return out
+
+
+# The app's lane models: dv-fast on the question lanes, dv-base on the
+# report lanes (deepvision_tpu/web/server.py); named, since "auto" picks
+# from the in-repo checkpoints, which the card's copy leaves out.
+GATEWAY_MODELS = {
+    "AI_MODE": "engine", "QUESTION_MODEL_NAME": "dv-fast",
+    "REPORT_MODEL_NAME": "dv-base", "REPORT_DRAFT_MODEL_NAME": "dv-base",
+    "REPORT_REVIEW_MODEL_NAME": "dv-base",
+}
+
+
+def _question_prompts():
+    """An interview's next-question prompt (the topic, a scenario
+    dimension, eight answered rounds) and its follow-up turn: the same
+    text plus one more answer, so the follow-up shares its head."""
+    files = sorted(glob.glob(os.path.join(ROOT, "resources", "scenarios",
+                                          "builtin", "*.json")))
+    with open(files[0], encoding="utf-8") as fh:
+        sc = json.load(fh)
+    dims = sc["dimensions"]
+    head = (f"你是一名资深需求访谈顾问，正在进行结构化访谈。\n\n"
+            f"访谈主题：{sc['name']}\n{sc['description']}\n\n【访谈记录】\n")
+    rounds = "".join(
+        f"问题{r + 1}（{dims[r % len(dims)]['name']}）：请具体说明"
+        f"{dims[r % len(dims)]['description']}。\n回答：关于"
+        f"{'、'.join(dims[r % len(dims)]['key_aspects'])}，现场确认了现状与期望。\n"
+        for r in range(8))
+    tail = (f"\n当前维度：{dims[0]['name']}（关注要点："
+            f"{'、'.join(dims[0]['key_aspects'])}）\n\n"
+            "请生成下一个访谈问题，输出 JSON：{\"question\": \"...\", "
+            "\"options\": [...]}")
+    follow = (f"问题9（{dims[1 % len(dims)]['name']}）：请补充说明。\n"
+              f"回答：{dims[1 % len(dims)]['description']}，已有初步方案。\n")
+    return head + rounds + tail, head + rounds + follow + tail
+
+
+def _gateway_boot(extra=None):
+    """``build_gateway`` with the app's defaults and the lane models; waits
+    until the report-only engine's background warmup is done too."""
+    from deepvision_tpu_torch.web.gateway import build_gateway
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    gw = build_gateway({**GATEWAY_MODELS, **(extra or {})})
+    boot_fg = time.monotonic() - t0
+    for eng in gw.engines.values():
+        eng.start()
+    boot = {"foreground_s": boot_fg, "all_s": time.monotonic() - t0}
+    if set(gw.engines) != {"dv-fast", "dv-base"}:
+        raise AssertionError(f"gateway engines {set(gw.engines)}")
+    lanes = {k: v.engine for k, v in gw.lanes.items()}
+    want = {"question": "dv-fast", "question_fast": "dv-fast",
+            "question_deep": "dv-fast", "report": "dv-base",
+            "report_draft": "dv-base", "report_review": "dv-base"}
+    if any(lanes[k] != v for k, v in want.items()):
+        raise AssertionError(f"lane models {lanes}")
+    steps = {m: e.cfg.decode_steps_per_call for m, e in gw.engines.items()}
+    if steps != {"dv-fast": 8, "dv-base": 16}:
+        raise AssertionError(f"decode steps per call {steps}")
+    return gw, boot, lanes, steps
+
+
+def _call(gw, prompt, call_type, lane, model, **kw):
+    text, meta = gw.call_model(prompt, call_type, return_meta=True, **kw)
+    json.loads(text)  # raises on unparseable output
+    if (meta["lane"], meta["model"]) != (lane, model):
+        raise AssertionError(f"{call_type}: lane/model {meta}")
+    if meta["completion_tokens"] <= 0:
+        raise AssertionError(f"{call_type}: empty completion {meta}")
+    return text, meta
+
+
+def _shutdown(gw):
+    for eng in gw.engines.values():
+        eng.shutdown()
+
+
+def phase_gateway() -> dict:
+    """The app's main path through the port: ``build_gateway`` (dv-fast on
+    the question lanes, dv-base on the report lanes, the app's other
+    defaults: 32 slots, 1,024 pages of 64, chunked prefill, bf16 KV) ->
+    ``call_model`` -> lanes -> ``LLMEngine.generate_text`` -> scheduler ->
+    runner -> kernels.  One question (128 tokens, the lane's sampling), one
+    report draft (256 tokens, greedy) and the session's follow-up question,
+    which resumes through the prefix cache; every text must parse and the
+    flash, decode and chunk kernels must have run."""
+    from deepvision_tpu_torch.engine.kernels.flash_attention import (
+        flash_attention,
+    )
+    from deepvision_tpu_torch.engine.kernels.paged_attention import (
+        paged_attention_update,
+    )
+    from deepvision_tpu_torch.engine.kernels.paged_chunk import (
+        paged_chunk_attention,
+    )
+
+    t0 = time.monotonic()
+    gw, boot, lanes, steps = _gateway_boot()
+    try:
+        q_prompt, follow_prompt = _question_prompts()
+        r_prompt = _report_prompts(gw.engines["dv-base"].tokenizer, [800])[0]
+        ctx = {"session_id": "dv-smoke-session-1"}
+        counters = (flash_attention, paged_attention_update,
+                    paged_chunk_attention)
+        for fn in counters:
+            fn.launches = 0
+        _, meta_q = _call(gw, q_prompt, "question", "question", "dv-fast",
+                          max_tokens=128, context=ctx)
+        text_r, meta_r = _call(gw, r_prompt, "report_draft", "report_draft",
+                               "dv-base", max_tokens=256, temperature=0.0,
+                               context=ctx)
+        chunk_before = paged_chunk_attention.launches
+        _, meta_f = _call(gw, follow_prompt, "question", "question",
+                          "dv-fast", max_tokens=128, context=ctx)
+        launches = {"flash_fwd": flash_attention.launches,
+                    "paged_decode_update": paged_attention_update.launches,
+                    "paged_chunk": paged_chunk_attention.launches}
+        follow_chunk = paged_chunk_attention.launches - chunk_before
+        prefix = gw.engines["dv-fast"].stats()["prefix_cache"]
+        if min(launches["flash_fwd"], launches["paged_decode_update"]) <= 0:
+            raise AssertionError(f"gateway: a kernel was not launched "
+                                 f"{launches}")
+        if follow_chunk <= 0 or prefix["hits"] < 1:
+            raise AssertionError(f"gateway: the follow-up did not resume "
+                                 f"through the prefix cache ({prefix}, "
+                                 f"{follow_chunk} chunk launches)")
+        report_ids = gw.engines["dv-base"].tokenizer.encode(text_r)
+        out = {
+            "phase": "gateway", "boot": boot, "lanes": lanes,
+            "decode_steps_per_call": steps,
+            "max_slots": {m: e.cfg.max_slots for m, e in gw.engines.items()},
+            "checkpoints": {m: e.cfg.checkpoint_dir
+                            for m, e in gw.engines.items()},
+            "meta": {"question": meta_q, "report_draft": meta_r,
+                     "follow_up": meta_f},
+            "launches": launches, "follow_up_chunk_launches": follow_chunk,
+            "prefix_cache_dv_fast": prefix, "json_parsed": 3,
+        }
+    finally:
+        _shutdown(gw)
+    out["seconds"] = time.monotonic() - t0
+    emit(out)
+    out["report_text"], out["report_ids"] = text_r, report_ids
+    return out
+
+
+def phase_gateway_int8(bf16) -> dict:
+    """The report draft of phase ``gateway`` again, through a gateway with
+    ``ENGINE_KV_QUANTIZE=int8`` (every engine calibrates its static scales
+    at boot): the JSON must parse; the scales' range and the first token
+    where the output leaves the bf16 run's are reported, not judged."""
+    t0 = time.monotonic()
+    gw, boot, _, _ = _gateway_boot({"ENGINE_KV_QUANTIZE": "int8"})
+    try:
+        eng = gw.engines["dv-base"]
+        if not eng.cache_cfg.quantized or eng.runner.cache["k"][0].dtype \
+                != torch.int8:
+            raise AssertionError("gateway_int8: the pools are not int8")
+        r_prompt = _report_prompts(eng.tokenizer, [800])[0]
+        text, meta = _call(gw, r_prompt, "report_draft", "report_draft",
+                           "dv-base", max_tokens=256, temperature=0.0,
+                           context={"session_id": "dv-smoke-session-1"})
+        ids = eng.tokenizer.encode(text)
+        ref = bf16["report_ids"]
+        first_diff = next((i for i, (a, b) in enumerate(zip(ids, ref))
+                           if a != b), None)
+        if first_diff is None and len(ids) != len(ref):
+            first_diff = min(len(ids), len(ref))
+        ks, vs = eng.kv_scales
+        out = {
+            "phase": "gateway_int8", "boot": boot, "meta": meta,
+            "json_parsed": 1,
+            "k_scale_range": [ks.min().item(), ks.max().item()],
+            "v_scale_range": [vs.min().item(), vs.max().item()],
+            "first_token_differing_from_bf16": first_diff,
+            "tokens": len(ids), "bf16_tokens": len(ref),
+        }
+    finally:
+        _shutdown(gw)
+    out["seconds"] = time.monotonic() - t0
+    emit(out)
+    return out
+
+
 def _train_batch(tokenizer, rows: int, row_len: int, seed: int):
     """``[rows, row_len]`` token ids of seeded interview transcripts built
     from the in-repo scenarios (question and answer per dimension),
@@ -1046,6 +1509,14 @@ KERNELS = {
         "source": "deepvision_tpu_torch/engine/kernels/csrc/flash_bwd.cu",
         "replaces": "deepvision_tpu/engine/kernels/flash_attention.py:272",
     },
+    "paged_attention": {
+        "source": "deepvision_tpu_torch/engine/kernels/csrc/paged_attention.cu",
+        "replaces": "deepvision_tpu/engine/kernels/paged_attention.py:37",
+    },
+    "paged_update_bkv": {
+        "source": "deepvision_tpu_torch/engine/kernels/csrc/paged_attention.cu",
+        "replaces": "deepvision_tpu/engine/kernels/paged_attention.py:413",
+    },
 }
 
 
@@ -1063,12 +1534,16 @@ def main() -> int:
     main_cases = phase_kernels()
     eng = phase_engine()
     eng_prefix = phase_engine_prefix()
+    api = phase_paged_api()
+    gateway = phase_gateway()
+    phase_gateway_int8(gateway)
     train = phase_train()
     # each kernel's launches come from the phase whose path it is
     launches = {**eng["launches"],
                 "paged_chunk": eng_prefix["launches"]["paged_chunk"],
                 "flash_bwd_dq": train["launches"]["flash_bwd_dq"],
-                "flash_bwd_dkv": train["launches"]["flash_bwd_dkv"]}
+                "flash_bwd_dkv": train["launches"]["flash_bwd_dkv"],
+                **api["launches"]}
     # the card's name and power limit again: the output has outgrown what
     # a tail-limited log keeps, and its first lines fall out of it
     print(dev["nvidia_smi"][0] if dev["nvidia_smi"] else

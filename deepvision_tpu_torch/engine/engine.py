@@ -19,6 +19,7 @@ import torch
 
 from deepvision_tpu_torch.engine.config import ModelConfig, get_model_config
 from deepvision_tpu_torch.engine.kv_cache import CacheConfig, PageAllocator
+from deepvision_tpu_torch.engine.model import calibrate_kv_scales
 from deepvision_tpu_torch.engine.runner import ModelRunner
 from deepvision_tpu_torch.engine.scheduler import (
     HIGH,
@@ -72,12 +73,14 @@ class EngineConfig:
     # Chained fused decode calls; read only by pipelined decode, which
     # raises until it is ported.
     max_chained_decodes: int = 4
+    # int8 KV page pools ("int8" | ""): static per-(layer, kv head) scales
+    # calibrated at boot on a fixed interview prompt (calibrate_kv_scales).
+    kv_quantize: str = ""
     # Settings of the JAX package this slice has not ported: anything but
     # the defaults raises NotImplementedError.
     tp: int = 1
     vocab_sharded: Optional[bool] = None
     quantize: str = ""
-    kv_quantize: str = ""
     fuse_projections: bool = False
     pipeline_decode: bool = False
 
@@ -87,8 +90,6 @@ _NOT_PORTED = (
     ("vocab_sharded", None, "the vocab-sharded embedding and logits come "
                             "with the multi-device slice"),
     ("quantize", "", "weight-only int8 comes in a later slice"),
-    ("kv_quantize", "", "engine-level int8 KV (with calibrate_kv_scales) "
-                        "comes in a later slice"),
     ("fuse_projections", False, "projection fusion comes in a later slice"),
     ("pipeline_decode", False, "pipelined decode comes in a later slice"),
     ("warmup_buckets", (128, 256, 512, 1024),
@@ -116,6 +117,9 @@ class LLMEngine:
             if getattr(cfg, name) != default:
                 raise NotImplementedError(f"{name}={getattr(cfg, name)!r}: "
                                           f"{why}")
+        if cfg.kv_quantize and cfg.kv_quantize != "int8":
+            raise ValueError(f"unknown kv_quantize mode {cfg.kv_quantize!r}; "
+                             "supported: int8")
         self.device = resolve_device(cfg.device)
         self.cfg = cfg
         self.model_cfg = model_cfg or get_model_config(cfg.model)
@@ -124,9 +128,14 @@ class LLMEngine:
             num_pages=cfg.num_pages,
             page_size=cfg.page_size,
             max_pages_per_seq=cfg.max_pages_per_seq,
+            dtype=torch.int8 if cfg.kv_quantize == "int8" else torch.bfloat16,
         )
         params = load_or_init(self.model_cfg, cfg.checkpoint_dir, cfg.seed,
                               device=self.device)
+        self.kv_scales = None
+        if self.cache_cfg.quantized:
+            self.kv_scales = calibrate_kv_scales(
+                params, self._calibration_tokens(), cfg=self.model_cfg)
 
         self.json_dfa = None
         if (cfg.json_dfa
@@ -156,6 +165,7 @@ class LLMEngine:
                        if self.json_dfa is not None else None),
             dfa_dist=(self.json_dfa.dist
                       if self.json_dfa is not None else None),
+            kv_scales=self.kv_scales,
         )
         self.allocator = PageAllocator(cfg.num_pages)
         self.scheduler = ContinuousBatchingScheduler(
@@ -172,6 +182,25 @@ class LLMEngine:
         self.warmup_s = None
         self._started = False
         self._start_lock = threading.Lock()
+
+    # Calibration text of the JAX engine's boot (deepvision_tpu/engine/
+    # engine.py): a representative interview prompt.
+    CALIBRATION_PROMPT = (
+        "你是一名资深需求访谈顾问，正在进行结构化访谈。\n\n"
+        "访谈主题：企业客户关系管理系统需求调研\n\n"
+        "【参考文档：需求说明】\n现状为多套异构系统并存，数据口径"
+        "不一致，补货决策依赖人工经验，期望统一数据底座。\n\n"
+        "当前维度：客户需求（关注要点：核心痛点、期望价值）\n\n"
+        "请生成下一个访谈问题，输出 JSON：{\"question\": \"...\"}"
+    )
+
+    def _calibration_tokens(self) -> torch.Tensor:
+        """``[2, 256]`` ids: the calibration prompt repeated to 256 tokens,
+        and the same row reversed, as the JAX engine builds them."""
+        ids = self.tokenizer.encode(self.CALIBRATION_PROMPT)[:256]
+        ids = (ids * (256 // max(1, len(ids)) + 1))[:256]
+        return torch.tensor([ids, ids[::-1]], dtype=torch.int32,
+                            device=self.device)
 
     # ------------------------------------------------------------------
 

@@ -55,6 +55,11 @@ _SIGNATURES = {
     # stream
     "dv_paged_decode_update": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    # q, new_k (or null), new_v (or null), k_pages, v_pages, block_tables,
+    # seq_lens, k_scale, v_scale, out, B, H, KV, N, P, MP, HD, pool_dtype,
+    # write, scale, stream
+    "dv_paged_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                           _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     # q, k_pages, v_pages, block_tables, chunk_starts, seq_lens, k_scale,
     # v_scale, out, B, C, H, KV, N, P, MP, HD, q_dtype, pool_dtype, scale,
     # stream

@@ -1,13 +1,22 @@
-"""Fused paged-KV decode step: CUDA kernel + plain version.
+"""Paged decode attention: CUDA kernels + plain versions.
 
-``paged_attention_update`` replaces the JAX package's Pallas kernel
-``deepvision_tpu/engine/kernels/paged_attention.py::_fused_kernel_b`` (its
-``grid_mode="b"``): write this step's K/V row into the page pools in place,
-then attend over each sequence's pages.  On CUDA tensors it launches
-``csrc/paged_decode.cu`` (design notes, bound and what is left for later
-are in that file's header); on CPU tensors it runs
-:func:`paged_attention_update_reference`.  It never falls back from one to
-the other.
+Three functions of the JAX package's
+``deepvision_tpu/engine/kernels/paged_attention.py``, each launching a
+hand-written kernel on CUDA tensors and running its plain version on CPU
+tensors (never falling back from one to the other):
+
+* :func:`paged_attention_update` with ``grid_mode="b"`` (the default, the
+  engine's decode path) replaces ``_fused_kernel_b``: write this step's K/V
+  row into the page pools in place, then attend over each sequence's pages
+  (``csrc/paged_decode.cu``);
+* :func:`paged_attention_update` with any other ``grid_mode`` (``"bkv"``)
+  replaces ``_fused_kernel``, the same function on a (B, KV) grid
+  (``csrc/paged_attention.cu``, ``WRITE=true``);
+* :func:`paged_attention` replaces ``_paged_kernel``: read-only paged
+  decode attention (``csrc/paged_attention.cu``, ``WRITE=false``).
+
+Design notes, bounds and what is left for later are in the sources'
+headers.
 """
 
 from __future__ import annotations
@@ -22,8 +31,9 @@ from deepvision_tpu_torch.engine.kv_cache import (
 
 _NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 128, 256)
-MAX_GROUP = 8  # query heads per kv head the kernel takes
-POOL_DTYPES = (torch.bfloat16, torch.int8)  # the kernel takes bf16 q
+MAX_GROUP = 8  # query heads per kv head the kernels take
+POOL_DTYPES = (torch.bfloat16, torch.int8)  # the kernels take bf16 q
+SMEM_LIMIT = 232448  # bytes of shared memory a block may use on Hopper
 
 
 def _scales(k_scale, v_scale, kv: int, device):
@@ -34,8 +44,129 @@ def _scales(k_scale, v_scale, kv: int, device):
             ones if v_scale is None else v_scale)
 
 
+def _check(name, q, k_pages, v_pages, block_tables, seq_lens, new_k=None,
+           new_v=None):
+    """Device, dtype and shape checks shared by the CUDA paths; raises on
+    anything the kernels do not take."""
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {q.device}")
+    B, H, HD = q.shape
+    KV, N, P, _ = k_pages.shape
+    MP = block_tables.shape[1] if block_tables.dim() == 2 else -1
+    if (q.dtype != torch.bfloat16 or k_pages.dtype not in POOL_DTYPES
+            or v_pages.dtype != k_pages.dtype):
+        raise TypeError(f"{name}: dtypes q {q.dtype} pools "
+                        f"{k_pages.dtype}/{v_pages.dtype} not supported")
+    if ((new_k is not None and (new_k.shape != (B, KV, HD)
+                                or new_v.shape != new_k.shape))
+            or k_pages.shape != (KV, N, P, HD) or v_pages.shape != k_pages.shape
+            or block_tables.shape != (B, MP) or seq_lens.shape != (B,)
+            or H % KV):
+        raise ValueError(f"{name}: inconsistent shapes")
+    if HD not in HEAD_DIMS or H // KV > MAX_GROUP:
+        raise ValueError(f"{name}: head_dim {HD} / group {H // KV} not "
+                         f"supported")
+    if block_tables.dtype != torch.int32 or seq_lens.dtype != torch.int32:
+        raise TypeError(f"{name}: block_tables and seq_lens must be int32")
+
+
+def _rows(new_k, new_v, k_pages, k_scale, v_scale):
+    """This step's rows in the pool dtype (quantized for int8 pools)."""
+    if k_pages.dtype == torch.int8:
+        new_k = quantize_rows(new_k, k_scale, 1)
+        new_v = quantize_rows(new_v, v_scale, 1)
+    return new_k.to(k_pages.dtype), new_v.to(k_pages.dtype)
+
+
+def _check_operands(name, device, tensors, k_scale, v_scale):
+    for tname, t in tensors:
+        if t.device != device or not t.is_contiguous():
+            raise ValueError(f"{name}: {tname} must be contiguous on "
+                             f"{device}")
+    if k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32:
+        raise TypeError(f"{name}: scales must be float32")
+
+
+def _smem_bytes(P, HD, G, itemsize):
+    """Shared memory of ``csrc/paged_attention.cu`` (its ``smem_bytes``):
+    two stages of one K page (rows padded by 16 bytes) and one V page
+    (rows rounded up to 4), q as float, the score items, the softmax
+    state and, at HD < 256, the column groups' partial sums."""
+    pp = -(-P // 4) * 4
+    groups = 256 // HD
+    return (2 * P * (HD + 16 // itemsize) * itemsize + 2 * pp * HD * itemsize
+            + 4 * (G * HD + HD // 32 * G * pp + 24
+                   + (groups * G * HD if groups > 1 else 0)))
+
+
+def _launch_paged(name, q, k_pages, v_pages, block_tables, seq_lens,
+                  k_scale, v_scale, new_k=None, new_v=None):
+    """Launch ``csrc/paged_attention.cu`` (the write when ``new_k`` is
+    given); returns the output."""
+    _check(name, q, k_pages, v_pages, block_tables, seq_lens, new_k, new_v)
+    B, H, HD = q.shape
+    KV, N, P, _ = k_pages.shape
+    MP = block_tables.shape[1]
+    k_scale, v_scale = _scales(k_scale, v_scale, KV, q.device)
+    write = new_k is not None
+    # cp.async and the row copies move 16-byte pieces of these
+    staged = [("k_pages", k_pages), ("v_pages", v_pages)]
+    if write:
+        new_k, new_v = _rows(new_k, new_v, k_pages, k_scale, v_scale)
+        staged += [("new_k", new_k), ("new_v", new_v)]
+    _check_operands(name, q.device, staged + [
+        ("q", q), ("block_tables", block_tables), ("seq_lens", seq_lens),
+        ("k_scale", k_scale), ("v_scale", v_scale)], k_scale, v_scale)
+    for tname, t in staged:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {tname} is not 16-byte aligned")
+    smem = _smem_bytes(P, HD, H // KV, k_pages.element_size())
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"{name}: page size {P} at head_dim {HD} needs "
+                         f"{smem} bytes of shared memory (> {SMEM_LIMIT})")
+    out = torch.empty_like(q)
+    lib = _build.library()
+    rc = lib.dv_paged_attention(
+        q.data_ptr(), new_k.data_ptr() if write else None,
+        new_v.data_ptr() if write else None, k_pages.data_ptr(),
+        v_pages.data_ptr(), block_tables.data_ptr(), seq_lens.data_ptr(),
+        k_scale.data_ptr(), v_scale.data_ptr(), out.data_ptr(),
+        B, H, KV, N, P, MP, HD, _build.DTYPE_CODES[k_pages.dtype],
+        int(write), HD ** -0.5, _build.stream_ptr(q.device))
+    _build.check(rc, name)
+    return out
+
+
+def paged_attention(q, k_pages, v_pages, block_tables, seq_lens, *,
+                    k_scale=None, v_scale=None):
+    """Decode-step attention over a paged KV cache, read-only.
+
+    Args:
+      q: ``[B, H, HD]`` this step's queries (bf16 on CUDA).
+      k_pages, v_pages: ``[KV, N, P, HD]`` shared page pools (bf16, or int8
+        with ``k_scale``/``v_scale``).
+      block_tables: ``[B, MP]`` int32 page ids (page 0 is the trash page;
+        unused entries may be 0).
+      seq_lens: ``[B]`` int32 lengths including the current token.
+      k_scale, v_scale: ``[KV]`` float32 static scales (int8 pools).
+
+    Returns ``[B, H, HD]``.
+    """
+    if q.device.type == "cpu":
+        return paged_attention_reference(q, k_pages, v_pages, block_tables,
+                                         seq_lens, k_scale, v_scale)
+    out = _launch_paged("paged_attention", q, k_pages, v_pages,
+                        block_tables, seq_lens, k_scale, v_scale)
+    paged_attention.launches += 1
+    return out
+
+
+paged_attention.launches = 0
+
+
 def paged_attention_update(q, new_k, new_v, k_pages, v_pages, block_tables,
-                           seq_lens, *, k_scale=None, v_scale=None):
+                           seq_lens, *, k_scale=None, v_scale=None,
+                           grid_mode: str = "b"):
     """One layer's decode attention with the KV write fused in.
 
     Args:
@@ -47,50 +178,37 @@ def paged_attention_update(q, new_k, new_v, k_pages, v_pages, block_tables,
       block_tables: ``[B, MP]`` int32 page ids.
       seq_lens: ``[B]`` int32 lengths INCLUDING the current token (>= 1).
       k_scale, v_scale: ``[KV]`` float32 static scales (int8 pools).
+      grid_mode: ``"b"`` launches ``csrc/paged_decode.cu`` (the engine's
+        decode path); any other value the (B, KV)-grid kernel of
+        ``csrc/paged_attention.cu``.  Both compute the same function.
 
     Returns ``(out [B, H, HD], k_pages, v_pages)`` (the same pool tensors).
+    Launches are counted in ``paged_attention_update.launches`` (grid
+    ``"b"``) and ``paged_attention_update.bkv_launches`` (the other).
     """
     if q.device.type == "cpu":
         return paged_attention_update_reference(
             q, new_k, new_v, k_pages, v_pages, block_tables, seq_lens,
             k_scale=k_scale, v_scale=v_scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"paged_attention_update: unsupported device "
-                         f"{q.device}")
+    if grid_mode != "b":
+        out = _launch_paged("paged_attention_update", q, k_pages, v_pages,
+                            block_tables, seq_lens, k_scale, v_scale,
+                            new_k, new_v)
+        paged_attention_update.bkv_launches += 1
+        return out, k_pages, v_pages
+    _check("paged_attention_update", q, k_pages, v_pages, block_tables,
+           seq_lens, new_k, new_v)
     B, H, HD = q.shape
     KV, N, P, _ = k_pages.shape
-    MP = block_tables.shape[1] if block_tables.dim() == 2 else -1
-    if (q.dtype != torch.bfloat16 or k_pages.dtype not in POOL_DTYPES
-            or v_pages.dtype != k_pages.dtype):
-        raise TypeError(f"paged_attention_update: dtypes q {q.dtype} pools "
-                        f"{k_pages.dtype}/{v_pages.dtype} not supported")
-    if (new_k.shape != (B, KV, HD) or new_v.shape != new_k.shape
-            or k_pages.shape != (KV, N, P, HD) or v_pages.shape != k_pages.shape
-            or block_tables.shape != (B, MP) or seq_lens.shape != (B,)
-            or H % KV):
-        raise ValueError("paged_attention_update: inconsistent shapes")
-    if HD not in HEAD_DIMS or H // KV > MAX_GROUP:
-        raise ValueError(f"paged_attention_update: head_dim {HD} / group "
-                         f"{H // KV} not supported")
-    if block_tables.dtype != torch.int32 or seq_lens.dtype != torch.int32:
-        raise TypeError("paged_attention_update: block_tables and seq_lens "
-                        "must be int32")
+    MP = block_tables.shape[1]
     k_scale, v_scale = _scales(k_scale, v_scale, KV, q.device)
-    if k_pages.dtype == torch.int8:
-        new_k = quantize_rows(new_k, k_scale, 1)
-        new_v = quantize_rows(new_v, v_scale, 1)
-    new_k = new_k.to(k_pages.dtype)
-    new_v = new_v.to(v_pages.dtype)
-    tensors = (("q", q), ("new_k", new_k), ("new_v", new_v),
-               ("k_pages", k_pages), ("v_pages", v_pages),
-               ("block_tables", block_tables), ("seq_lens", seq_lens),
-               ("k_scale", k_scale), ("v_scale", v_scale))
-    for name, t in tensors:
-        if t.device != q.device or not t.is_contiguous():
-            raise ValueError(f"paged_attention_update: {name} must be "
-                             f"contiguous on {q.device}")
-    if k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32:
-        raise TypeError("paged_attention_update: scales must be float32")
+    new_k, new_v = _rows(new_k, new_v, k_pages, k_scale, v_scale)
+    _check_operands(
+        "paged_attention_update", q.device,
+        (("q", q), ("new_k", new_k), ("new_v", new_v), ("k_pages", k_pages),
+         ("v_pages", v_pages), ("block_tables", block_tables),
+         ("seq_lens", seq_lens), ("k_scale", k_scale), ("v_scale", v_scale)),
+        k_scale, v_scale)
     out = torch.empty_like(q)
     lib = _build.library()
     rc = lib.dv_paged_decode_update(
@@ -106,6 +224,7 @@ def paged_attention_update(q, new_k, new_v, k_pages, v_pages, block_tables,
 
 
 paged_attention_update.launches = 0
+paged_attention_update.bkv_launches = 0
 
 
 def paged_attention_update_reference(q, new_k, new_v, k_pages, v_pages,

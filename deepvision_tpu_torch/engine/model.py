@@ -243,6 +243,44 @@ def forward_decode(params, cache, tokens, seq_lens, block_tables, *,
     return _logits(x, params, cfg)
 
 
+@torch.no_grad()
+def calibrate_kv_scales(params, tokens, *, cfg: ModelConfig,
+                        margin: float = 1.25):
+    """Static int8 KV scales from one representative forward, as the JAX
+    package's ``calibrate_kv_scales``.
+
+    Runs the layer stack once over ``tokens [B, S]`` with the plain dense
+    attention (later layers' K/V must come from real attention) and returns
+    ``(k_scales [L, KV], v_scales [L, KV])`` float32, ``scale = margin *
+    maxabs / 127`` (at least 1e-6).  K is measured after RoPE, as the pools
+    store it.
+    """
+    B, S = tokens.shape
+    HD = cfg.head_dim
+    x = _scaled_embed(params, tokens, cfg)
+    rope = rope_tables(torch.arange(S, device=tokens.device), HD,
+                       cfg.rope_theta)
+    seq_lens = torch.full((B,), S, dtype=torch.int32, device=tokens.device)
+    k_maxes, v_maxes = [], []
+    for i in range(cfg.n_layers):
+        blk = _layer(params, i)
+        h = rms_norm(x, blk["ln1"], cfg.rms_eps)
+        q, k, v = _qkv_proj(h, blk)
+        q = apply_rope(q.reshape(B, S, -1, HD), rope)
+        k = apply_rope(k.reshape(B, S, -1, HD), rope)
+        v = v.reshape(B, S, -1, HD)
+        k_maxes.append(k.float().abs().amax(dim=(0, 1, 3)))
+        v_maxes.append(v.float().abs().amax(dim=(0, 1, 3)))
+        attn = flash_attention_reference(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), seq_lens)
+        attn = attn.transpose(1, 2).reshape(B, S, -1)
+        x = x + qdot(attn, blk["wo"], torch.float32).to(x.dtype)
+        x = x + _mlp(rms_norm(x, blk["ln2"], cfg.rms_eps), blk)
+    k_scales = torch.clamp(torch.stack(k_maxes) * margin / 127.0, min=1e-6)
+    v_scales = torch.clamp(torch.stack(v_maxes) * margin / 127.0, min=1e-6)
+    return k_scales, v_scales
+
+
 # ---------------------------------------------------------------------------
 # Full-sequence forward (no cache)
 # ---------------------------------------------------------------------------

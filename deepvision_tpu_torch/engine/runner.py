@@ -63,6 +63,7 @@ class ModelRunner:
         batch_buckets: Optional[Sequence[int]] = None,
         dfa_table=None,
         dfa_dist=None,
+        kv_scales=None,
     ):
         self.device = torch.device(device)
         self.chunked_prefill = chunked_prefill
@@ -100,7 +101,8 @@ class ModelRunner:
             b for b in sorted(set(batch_buckets)) if b <= max_bucket
         ) or (max_bucket,)
         self.params = params
-        self.cache = init_cache(cfg, cache_cfg, device=self.device)
+        self.cache = init_cache(cfg, cache_cfg, device=self.device,
+                                kv_scales=kv_scales)
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(rng_seed)
 

@@ -139,7 +139,7 @@ def test_engine_raises_without_cuda_unless_asked_for_cpu():
 
 @pytest.mark.parametrize("setting", [
     {"tp": 2}, {"quantize": "int8"},
-    {"kv_quantize": "int8"}, {"fuse_projections": True},
+    {"vocab_sharded": True}, {"fuse_projections": True},
     {"pipeline_decode": True},
 ])
 def test_unported_settings_raise(setting):

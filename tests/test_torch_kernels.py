@@ -8,6 +8,8 @@ the ``cuda``-marked test at the end, which skips without a GPU (and by
 ``chip_smoke.py`` on the card).
 """
 
+import importlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -23,8 +25,11 @@ from deepvision_tpu.engine.kernels.paged_attention import (
 )
 from deepvision_tpu.engine.kv_cache import quantize_rows as jquantize_rows
 from deepvision_tpu_torch.engine.kernels import flash_attention as tfa
-from deepvision_tpu_torch.engine.kernels import paged_attention as tpa
 from deepvision_tpu_torch.engine.kv_cache import quantize_rows
+
+# the module (the package exports its function of the same name)
+tpa = importlib.import_module(
+    "deepvision_tpu_torch.engine.kernels.paged_attention")
 
 torch.set_num_threads(2)
 

@@ -10,6 +10,8 @@ the ``cuda``-marked test at the end, which skips without a GPU (and by
 ``chip_smoke.py`` on the card).
 """
 
+import importlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -26,8 +28,11 @@ from deepvision_tpu.engine.kernels.paged_chunk import (
 from deepvision_tpu_torch.engine import kv_cache as tkv
 from deepvision_tpu_torch.engine import model as tmodel
 from deepvision_tpu_torch.engine import weights as tweights
-from deepvision_tpu_torch.engine.kernels import paged_attention as tpa
 from deepvision_tpu_torch.engine.kernels import paged_chunk as tpc
+
+# the module (the package exports its function of the same name)
+tpa = importlib.import_module(
+    "deepvision_tpu_torch.engine.kernels.paged_attention")
 
 torch.set_num_threads(2)
 
