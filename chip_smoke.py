@@ -6,10 +6,15 @@ Phases, each printing one JSON line with its own seconds:
 
 1. device  — the card's name and power limit;
 2. build   — the CUDA kernels compiled from ``csrc/`` (nvcc + ctypes);
+   each backward kernel's registers, shared memory, spills and blocks an
+   SM, and the tensor-core instructions (HMMA/HGMMA) ``cuobjdump`` finds
+   in each (the bf16 kernels must have some);
 3. kernels — every kernel of the serving and training paths against its
    plain PyTorch version on the card, at the main paths' shapes (bf16 and
-   int8 pools; the backward kernels at the training shape, ragged, f32 and
-   head dims 32/64/256; the read-only paged attention and the (B, KV)-grid
+   int8 pools; the backward kernels at the training shape, ragged, f32,
+   head dims 32/64/256, a batch with a length-0 and a length-1 sequence,
+   S = 1,001 at G = 1 and HD 256 at S = 2,048; the read-only paged
+   attention and the (B, KV)-grid
    decode update at the report lane's shape, ragged, int8, head dims
    32/64/256 and the written row's three positions in a page, the update
    also against the grid-"b" kernel), with times for the kernel, the plain
@@ -40,7 +45,9 @@ Phases, each printing one JSON line with its own seconds:
    -> ``call_model`` for a question, a report draft and the session's
    follow-up question (resumed through the prefix cache); every text must
    parse, lanes, models and decode windows must be the app's, and the
-   flash, decode and chunk kernels must have run;
+   flash, decode and chunk kernels must have run; then ``embed_texts`` on
+   20 document chunks and a query: unit vectors ``[21, d_model]`` through
+   the flash kernel;
 8. gateway_int8 — the report draft again through a gateway with
    ``ENGINE_KV_QUANTIZE=int8``: it must parse; the calibrated scales and
    the first token that differs from the bf16 run are reported;
@@ -54,7 +61,9 @@ Phases, each printing one JSON line with its own seconds:
    autograd (loss and every gradient leaf), and ``save_npz`` ->
    ``load_or_init`` must give back the same bits; one step is profiled;
 10. the card's name and power limit again, then the ``kernels`` line the
-   benchmark contract reads (seven kernels);
+   benchmark contract reads (seven kernels, each with its achieved
+   TFLOP/s and whether it computes on the tensor cores or in fp32 on the
+   CUDA cores);
 11. shutdown, then the last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the script exits non-zero without the last
@@ -70,10 +79,13 @@ import importlib
 import json
 import math
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -152,8 +164,42 @@ def phase_device() -> dict:
     return info
 
 
-def phase_build() -> None:
+# a mangled backward kernel name: ..flash_bwd_dq_tc_kernelILi128EE..
+_BWD_KERNEL = re.compile(r"(flash_bwd_(?:dq|dkv)_(?:tc|f32)_kernel)ILi(\d+)E")
+
+
+def _sass_mma_counts(so_path: str) -> dict:
+    """Tensor-core instructions (HMMA, HGMMA) in each backward kernel of
+    the built library, from ``cuobjdump -sass``; empty where the toolkit
+    has no cuobjdump."""
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    tool = shutil.which("cuobjdump") or os.path.join(home, "bin",
+                                                     "cuobjdump")
+    if not os.path.isfile(tool):
+        return {}
+    sass = subprocess.run([tool, "-sass", so_path], capture_output=True,
+                          text=True, timeout=300).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            m = _BWD_KERNEL.search(line)
+            name = f"{m.group(1)}<{m.group(2)}>" if m else None
+            if name:
+                counts[name] = {"HMMA": 0, "HGMMA": 0}
+        elif name:
+            for op in ("HGMMA", "HMMA"):
+                if op + "." in line:
+                    counts[name][op] += 1
+                    break
+    return counts
+
+
+def phase_build() -> dict:
     from deepvision_tpu_torch.engine.kernels import _build
+    from deepvision_tpu_torch.engine.kernels.flash_attention import (
+        HEAD_DIMS,
+        flash_bwd_kernel_info,
+    )
 
     t0 = time.monotonic()
     _build.library()
@@ -165,9 +211,23 @@ def phase_build() -> None:
                 if "registers" in line or ("spill" in line
                                            and " 0 bytes spill" not in line):
                     regs.append(line.strip().replace("ptxas info    : ", ""))
-    emit({"phase": "build", "seconds": time.monotonic() - t0,
-          "sources": [os.path.relpath(p, ROOT) for p in _build.sources()],
-          "ptxas": regs[:48]})
+    # each backward kernel as the card runs it: registers, dynamic shared
+    # memory, local (spill) bytes and blocks an SM
+    bwd = {f"{kind}_{dtype}_hd{hd}": flash_bwd_kernel_info(kind, hd, dtype)
+           for kind in ("dq", "dkv")
+           for dtype in (torch.bfloat16, torch.float32) for hd in HEAD_DIMS}
+    mma = _sass_mma_counts(info["so_path"])
+    tc = {n: c for n, c in mma.items() if "_tc_kernel" in n}
+    if mma and (len(tc) != 2 * len(HEAD_DIMS)
+                or min(c["HMMA"] + c["HGMMA"] for c in tc.values()) <= 0):
+        raise AssertionError(f"bf16 backward kernels without tensor-core "
+                             f"instructions: {tc}")
+    out = {"phase": "build", "seconds": time.monotonic() - t0,
+           "sources": [os.path.relpath(p, ROOT) for p in _build.sources()],
+           "ptxas": regs[:48], "flash_bwd_kernels": bwd,
+           "flash_bwd_sass_mma": mma or "cuobjdump not found"}
+    emit(out)
+    return out
 
 
 def _flash_case(name, B, H, KV, S, HD, lens, dtype, gen, iters=20):
@@ -294,7 +354,10 @@ def _bwd_case(name, B, H, KV, S, HD, lens, dtype, gen, iters=10):
             # SDPA gives dQ, dK and dV in one call: set it beside the sum
             # of the two kernels
             "library_ms": library_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "gflop": flops / 1e9}
+            "bound_by": bound_by, "gflop": flops / 1e9,
+            "tflops": flops / 1e9 / ms,
+            "compute_route": ("tensor_core" if dtype == torch.bfloat16
+                              else "f32_cuda_core")}
         emit({"phase": "kernels", "kernel": kname, **outs[kname]})
     return outs
 
@@ -312,6 +375,12 @@ def bwd_cases(gen) -> dict:
     _bwd_case("hd32", 2, 4, 2, 256, 32, [256, 131], bf16, gen)
     _bwd_case("hd64_g8", 2, 8, 1, 256, 64, [256, 77], bf16, gen)
     _bwd_case("hd256", 1, 8, 1, 512, 256, [390], bf16, gen)
+    # the tensor-core tiling's edges: a length-0 and a length-1 sequence in
+    # one batch; S a multiple of neither tile (64, 32) at G=1; HD 256 at
+    # the full 2,048 tokens
+    _bwd_case("len0_len1", 4, 6, 2, 256, 128, [256, 0, 1, 97], bf16, gen)
+    _bwd_case("s1001_g1", 2, 4, 4, 1001, 128, [1001, 777], bf16, gen)
+    _bwd_case("hd256_s2048", 1, 8, 1, 2048, 256, [2048], bf16, gen, iters=3)
     return main
 
 
@@ -381,7 +450,7 @@ def _decode_case(name, B, H, KV, HD, P, MP, lens, pool_dtype, gen,
            "max_abs_err": err_active, "tol": tol, "ms": ms,
            "device_ms": dev_ms,
            "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms,
-           "bound_by": bound_by, "mbytes": nbytes / 1e6}
+           "bound_by": bound_by, "gflop": flops / 1e9, "mbytes": nbytes / 1e6}
     emit({"phase": "kernels", "kernel": "paged_decode_update", **out})
     return out
 
@@ -507,7 +576,7 @@ def _paged_case(name, write, B, H, KV, HD, P, MP, lens, pool_dtype, gen,
     bound_ms, bound_by = bound(nbytes, flops, H100_BF16_FLOP_S)
     out.update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
-               mbytes=nbytes / 1e6)
+               gflop=flops / 1e9, mbytes=nbytes / 1e6)
     emit({"phase": "kernels",
           "kernel": "paged_update_bkv" if write else "paged_attention",
           **out})
@@ -1144,6 +1213,25 @@ def _gateway_boot(extra=None):
     return gw, boot, lanes, steps
 
 
+def _document_chunks(n=20):
+    """``n`` reference-material chunks (one per scenario dimension: its
+    name, description and key aspects, under the scenario's topic) and a
+    query, as the app's document retrieval embeds them."""
+    files = sorted(glob.glob(os.path.join(ROOT, "resources", "scenarios",
+                                          "builtin", "*.json")))
+    chunks = []
+    for path in files:
+        with open(path, encoding="utf-8") as fh:
+            sc = json.load(fh)
+        for d in sc["dimensions"]:
+            chunks.append(f"{sc['name']}：{sc['description']}\n{d['name']}——"
+                          f"{d['description']}。关注要点："
+                          f"{'、'.join(d['key_aspects'])}。")
+    if len(chunks) < n:
+        raise AssertionError(f"only {len(chunks)} scenario dimensions")
+    return chunks[:n], "采购项目的预算区间和时间窗口怎么确认？"
+
+
 def _call(gw, prompt, call_type, lane, model, **kw):
     text, meta = gw.call_model(prompt, call_type, return_meta=True, **kw)
     json.loads(text)  # raises on unparseable output
@@ -1209,6 +1297,25 @@ def phase_gateway() -> dict:
                                  f"through the prefix cache ({prefix}, "
                                  f"{follow_chunk} chunk launches)")
         report_ids = gw.engines["dv-base"].tokenizer.encode(text_r)
+        # the app's document retrieval: reference chunks and a query
+        # embedded through the gateway (the first engine's serving params,
+        # the flash forward kernel)
+        chunks, query = _document_chunks()
+        flash_before = flash_attention.launches
+        t_e = time.monotonic()
+        embs = gw.embed_texts(chunks + [query])
+        embed_s = time.monotonic() - t_e
+        d_model = next(iter(gw.engines.values())).model_cfg.d_model
+        if embs is None or embs.shape != (len(chunks) + 1, d_model):
+            raise AssertionError(f"gateway.embed_texts: got "
+                                 f"{None if embs is None else embs.shape}")
+        norms = np.linalg.norm(embs, axis=-1)
+        if not np.isfinite(embs).all() or np.abs(norms - 1).max() > 1e-3:
+            raise AssertionError(f"gateway.embed_texts: norms {norms}")
+        embed_flash = flash_attention.launches - flash_before
+        if embed_flash <= 0:
+            raise AssertionError("gateway.embed_texts did not launch the "
+                                 "flash forward kernel")
         out = {
             "phase": "gateway", "boot": boot, "lanes": lanes,
             "decode_steps_per_call": steps,
@@ -1219,6 +1326,11 @@ def phase_gateway() -> dict:
                      "follow_up": meta_f},
             "launches": launches, "follow_up_chunk_launches": follow_chunk,
             "prefix_cache_dv_fast": prefix, "json_parsed": 3,
+            "embed": {"texts": len(chunks) + 1, "d_model": d_model,
+                      "seconds": embed_s, "flash_launches": embed_flash,
+                      "max_norm_err": float(np.abs(norms - 1).max()),
+                      "top3_chunks": [int(i) for i in np.argsort(
+                          -(embs[:-1] @ embs[-1]))[:3]]},
         }
     finally:
         _shutdown(gw)
@@ -1492,30 +1604,37 @@ KERNELS = {
     "flash_fwd": {
         "source": "deepvision_tpu_torch/engine/kernels/csrc/flash_fwd.cu",
         "replaces": "deepvision_tpu/engine/kernels/flash_attention.py:33",
+        "compute_route": "f32_cuda_core",
     },
     "paged_decode_update": {
         "source": "deepvision_tpu_torch/engine/kernels/csrc/paged_decode.cu",
         "replaces": "deepvision_tpu/engine/kernels/paged_attention.py:223",
+        "compute_route": "f32_cuda_core",
     },
     "paged_chunk": {
         "source": "deepvision_tpu_torch/engine/kernels/csrc/paged_chunk.cu",
         "replaces": "deepvision_tpu/engine/kernels/paged_chunk.py:31",
+        "compute_route": "f32_cuda_core",
     },
     "flash_bwd_dq": {
         "source": "deepvision_tpu_torch/engine/kernels/csrc/flash_bwd.cu",
         "replaces": "deepvision_tpu/engine/kernels/flash_attention.py:223",
+        "compute_route": "tensor_core",
     },
     "flash_bwd_dkv": {
         "source": "deepvision_tpu_torch/engine/kernels/csrc/flash_bwd.cu",
         "replaces": "deepvision_tpu/engine/kernels/flash_attention.py:272",
+        "compute_route": "tensor_core",
     },
     "paged_attention": {
         "source": "deepvision_tpu_torch/engine/kernels/csrc/paged_attention.cu",
         "replaces": "deepvision_tpu/engine/kernels/paged_attention.py:37",
+        "compute_route": "f32_cuda_core",
     },
     "paged_update_bkv": {
         "source": "deepvision_tpu_torch/engine/kernels/csrc/paged_attention.cu",
         "replaces": "deepvision_tpu/engine/kernels/paged_attention.py:413",
+        "compute_route": "f32_cuda_core",
     },
 }
 
@@ -1556,7 +1675,8 @@ def main() -> int:
          "plain_ms": main_cases[name]["plain_ms"],
          "bound_ms": main_cases[name]["bound_ms"],
          "bound_by": main_cases[name]["bound_by"],
-         "library_ms": main_cases[name]["library_ms"]}
+         "library_ms": main_cases[name]["library_ms"],
+         "tflops": main_cases[name]["gflop"] / main_cases[name]["ms"]}
         for name in KERNELS]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["name"],
                                  "count": dev["count"]}})

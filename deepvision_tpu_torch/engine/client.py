@@ -11,17 +11,17 @@ priorities) instead of remote HTTP clients, the circuit breaker watches
 local engine health instead of gateway 5xx, and hedged duplicate requests
 are replaced by scheduler priority (SURVEY.md §5.8).
 
-A copy of the JAX package's ``engine/client.py`` over the port's engines,
-with one difference: :meth:`ModelGateway.embed_texts` raises in engine
-mode, because the document embedder is not ported yet (the JAX gateway
-swallows engine errors there and returns None).
+A copy of the JAX package's ``engine/client.py`` over the port's engines.
 """
 
 from __future__ import annotations
 
 import threading
 import time
+from collections import OrderedDict
 from typing import Dict, Optional
+
+import numpy as np
 
 from deepvision_tpu_torch.engine import template_backend
 from deepvision_tpu_torch.engine.lanes import (
@@ -126,6 +126,9 @@ class ModelGateway:
         self._lane_stats: Dict[str, dict] = {}
         self.adaptive_lane_order = True
         self.ADAPTIVE_MIN_SAMPLES = 6
+        # chunk-embedding LRU (embed_texts); mutated under self._lock —
+        # concurrent assistant-chat requests share the gateway
+        self._embed_cache: "OrderedDict[str, object]" = OrderedDict()
 
     def _record_lane_stat(self, lane: str, ok: bool, ms: float) -> None:
         with self._lock:
@@ -162,20 +165,48 @@ class ModelGateway:
             return {k: dict(v) for k, v in self._lane_stats.items()}
 
     def embed_texts(self, texts):
-        """Semantic embeddings for retrieval.  Without an engine (template
-        or off mode, or none registered) there is nothing to embed with:
-        returns None, and callers fall back to keyword-only retrieval, as
-        with the JAX gateway.
+        """Semantic embeddings from the first engine replica that exposes
+        them (LLMEngine.embed_texts — the serving params double as the
+        encoder).  Returns an [N, d] array or None when no engine can
+        embed (template backend, or every engine failed): callers fall
+        back to keyword-only retrieval.
 
-        In engine mode this raises NotImplementedError: the document
-        embedder (``LLMEngine.embed_texts``) comes in a later slice of the
-        port, and the JAX gateway's catch-all would turn "not ported" into
-        a silent None."""
-        if self.mode != "engine" or not self.engines:
-            return None
-        raise NotImplementedError(
-            "embed_texts: the document embedder is not ported yet (it comes "
-            "with the embedder slice of the port)")
+        Chunk embeddings are immutable per text, and chat re-ranks the
+        SAME session chunks every message — an LRU keyed by text caches
+        them so a repeat call embeds only the novel texts (usually just
+        the query)."""
+        cache = self._embed_cache
+        with self._lock:
+            missing = [t for t in dict.fromkeys(texts) if t not in cache]
+        if missing:
+            # embedding runs OUTSIDE the lock (device work); duplicate
+            # effort on a rare race is fine, corruption is not
+            fresh = None
+            for engine in self.engines.values():
+                fn = getattr(engine, "embed_texts", None)
+                if fn is None:
+                    continue
+                try:
+                    fresh = fn(missing)
+                except Exception:  # noqa: BLE001 — retrieval must degrade
+                    continue
+                if fresh is not None:
+                    break
+            if fresh is None:
+                return None
+            with self._lock:
+                for t, vec in zip(missing, fresh):
+                    cache[t] = vec
+                while len(cache) > 512:
+                    cache.popitem(last=False)
+        with self._lock:
+            try:
+                rows = [cache[t] for t in texts]
+            except KeyError:
+                return None
+            for t in texts:
+                cache.move_to_end(t, last=True)
+        return np.stack(rows)
 
     # ------------------------------------------------------------------
 

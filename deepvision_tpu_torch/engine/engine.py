@@ -332,8 +332,21 @@ class LLMEngine:
     # ------------------------------------------------------------------
 
     def embed_texts(self, texts):
-        raise NotImplementedError(
-            "embed_texts: the document embedder comes in a later slice")
+        """Batched doc embedding on the SERVING params (engine/embedding.py
+        encoder: transformer forward + mean-pool, no LM head), built on
+        first use with the engine's tokenizer.  The JAX engine returns None
+        for int8-quantized or projection-fused params; here those settings
+        raise at construction, so the params always have the unfused
+        layout the encoder reads."""
+        if getattr(self, "_embedder", None) is None:
+            from deepvision_tpu_torch.engine.embedding import (
+                DocumentEmbedder,
+            )
+
+            self._embedder = DocumentEmbedder(
+                self.model_cfg, params=self.runner.params,
+                tokenizer=self.tokenizer)
+        return self._embedder.embed_texts(texts)
 
     def stats(self) -> dict:
         s = self.scheduler

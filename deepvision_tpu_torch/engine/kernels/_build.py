@@ -50,6 +50,8 @@ _SIGNATURES = {
     # scale, stream
     "dv_flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _I, _I, _F, _P],
+    # dq (1) or dk/dv (0), HD, dtype, out int[5]
+    "dv_flash_bwd_info": [_I, _I, _I, _P],
     # q, new_k, new_v, k_pages, v_pages, block_tables, seq_lens, k_scale,
     # v_scale, out, B, H, KV, N, P, MP, HD, q_dtype, pool_dtype, scale,
     # stream
@@ -150,14 +152,14 @@ def library() -> ctypes.CDLL:
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
         _state.update(lib=lib, build_s=time.monotonic() - t0,
-                      log_path=log_path)
+                      log_path=log_path, so_path=so_path)
         return lib
 
 
 def build_info() -> dict:
-    """``{"build_s", "log_path"}`` of the loaded library (after
+    """``{"build_s", "log_path", "so_path"}`` of the loaded library (after
     :func:`library`)."""
-    return {k: _state[k] for k in ("build_s", "log_path")}
+    return {k: _state[k] for k in ("build_s", "log_path", "so_path")}
 
 
 def check(rc: int, name: str) -> None:

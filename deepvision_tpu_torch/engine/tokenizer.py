@@ -40,6 +40,10 @@ class ByteTokenizer:
         ids = list(text.encode("utf-8"))
         return ([self.BOS] if add_bos else []) + ids
 
+    def encode_batch(self, texts: Sequence[str],
+                     add_bos: bool = True) -> List[List[int]]:
+        return [self.encode(t, add_bos) for t in texts]
+
     def decode(self, ids: Sequence[int]) -> str:
         data = bytes(i for i in ids if 0 <= i < 256)
         return data.decode("utf-8", errors="replace")
@@ -238,6 +242,11 @@ class BPETokenizer:
             for word in pretokenize(piece):
                 ids.extend(self._bpe(word))
         return ids
+
+    def encode_batch(self, texts: Sequence[str],
+                     add_bos: bool = True) -> List[List[int]]:
+        """``add_bos`` is ignored, as in :meth:`encode`."""
+        return [self.encode(t) for t in texts]
 
     # -- decode ----------------------------------------------------------
     def decode(self, ids: Sequence[int]) -> str:

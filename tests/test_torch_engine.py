@@ -147,10 +147,28 @@ def test_unported_settings_raise(setting):
         LLMEngine(EngineConfig(**TINY, device="cpu", **setting))
 
 
-def test_embed_texts_is_not_ported_yet():
-    eng = LLMEngine(EngineConfig(**TINY, device="cpu", json_dfa=False))
-    with pytest.raises(NotImplementedError):
-        eng.embed_texts(["a"])
+def test_embed_texts_is_not_ported_yet(tiny_npz):
+    """The embedder is ported now (the name is the one this test had
+    while ``embed_texts`` raised): on the serving params it gives the JAX
+    engine's unit vector within the embedding tests' 2e-2 per element."""
+    from deepvision_tpu.engine.engine import EngineConfig as JEngineConfig
+    from deepvision_tpu.engine.engine import LLMEngine as JLLMEngine
+
+    jeng = JLLMEngine(JEngineConfig(**TINY, checkpoint_dir=tiny_npz,
+                                    interpret=True))
+    try:
+        want = jeng.embed_texts(["a"])
+    finally:
+        jeng.shutdown()
+    eng = LLMEngine(EngineConfig(**TINY, checkpoint_dir=tiny_npz,
+                                 device="cpu", json_dfa=False))
+    try:
+        got = eng.embed_texts(["a"])
+    finally:
+        eng.shutdown()
+    assert got.shape == want.shape == (1, 128) and got.dtype == np.float32
+    np.testing.assert_allclose(np.linalg.norm(got, axis=-1), 1.0, rtol=1e-3)
+    np.testing.assert_allclose(got, want, atol=2e-2, rtol=0)
 
 
 def test_warmup_and_batched_admission():

@@ -338,15 +338,16 @@ def test_failure_paths_equal_jax(call_type, script):
 
 
 def test_embed_texts_returns_none_without_engines_and_raises_with_them():
-    """Template mode (or no engine): None, as JAX.  Engine mode: the port
-    raises NotImplementedError (the embedder is not ported) where the JAX
-    gateway would swallow the engine's error and return None."""
-    assert ModelGateway(mode="template").embed_texts(["a"]) is None
-    assert jclient.ModelGateway(mode="template").embed_texts(["a"]) is None
-    assert ModelGateway(mode="engine").embed_texts(["a"]) is None
-    gw, _ = _gw(["ok"])
-    with pytest.raises(NotImplementedError, match="embedder"):
-        gw.embed_texts(["a"])
+    """Template mode, no engine, or engines that cannot embed: None, from
+    the port's gateway as from the JAX one.  (The name is the one this
+    test had while the port raised in engine mode; the embedder is ported
+    now and the two gateways agree.)"""
+    for cls in (ModelGateway, jclient.ModelGateway):
+        assert cls(mode="template").embed_texts(["a"]) is None
+        assert cls(mode="engine").embed_texts(["a"]) is None
+        gw = cls(mode="engine", engines={"default": FakeEngine(["ok"])})
+        assert gw.embed_texts(["a"]) is None
+        assert len(gw._embed_cache) == 0
 
 
 def test_process_wide_gateway():

@@ -133,3 +133,36 @@ def test_port_gateway_in_the_jax_app_equals_the_jax_gateway(tmp_path,
     for key in ("ai_generated", "report_quality_meta"):
         assert t_status.get(key) == j_status.get(key)
     assert t_report == j_report
+
+
+def test_port_gateway_retrieval_in_the_jax_app_equals_the_jax_gateway(
+        tmp_path, monkeypatch):
+    """The app's hybrid retrieval (``select_chunks_for_query``, keyword
+    overlap blended with the gateway's ``embed_texts`` cosine) picks the
+    same chunks through the port's engine-mode gateway as through the JAX
+    one, and both gateways really embed (unit vectors, not the
+    keyword-only fallback)."""
+    from deepvision_tpu.web.runtime.documents import select_chunks_for_query
+
+    monkeypatch.setenv("DV_DFA_CACHE_DIR", str(tmp_path / "dfa"))
+    ckpt = str(tmp_path / "tiny.npz")
+    save_npz(ckpt, init_params(TINY_TEST, seed=0))
+    chunks = ["门店补货决策依赖人工经验", "完全无关的天气记录 foo",
+              "仓储管理系统覆盖三个区域仓", "另一段无关的排班说明 bar",
+              "中心仓的出入库流程需要扫码确认", "客户管理流程与数据报表"]
+    queries = ["仓库进货怎样自动化", "出入库流程", "hello"]
+    picks = []
+    for build in (_jax_gateway,
+                  lambda s: build_gateway(s, device="cpu")):
+        gw = build(_settings(ckpt))
+        try:
+            embs = gw.embed_texts(chunks + queries)
+            assert embs is not None and embs.shape == (9, TINY_TEST.d_model)
+            assert abs(float((embs * embs).sum(-1).min()) - 1.0) < 1e-3
+            picks.append([select_chunks_for_query(chunks, q, top_k=3,
+                                                  embed_fn=gw.embed_texts)
+                          for q in queries])
+        finally:
+            for eng in gw.engines.values():
+                eng.shutdown()
+    assert picks[1] == picks[0]
