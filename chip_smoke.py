@@ -6,20 +6,26 @@ Phases, each printing one JSON line with its own seconds:
 
 1. device  — the card's name and power limit;
 2. build   — the CUDA kernels compiled from ``csrc/`` (nvcc + ctypes);
-   each backward kernel's registers, shared memory, spills and blocks an
-   SM, and the tensor-core instructions (HMMA/HGMMA) ``cuobjdump`` finds
-   in each (the bf16 kernels must have some);
+   each attention kernel's registers, shared memory, spills and blocks an
+   SM (the flash forward and backward, the paged chunk), and the
+   tensor-core instructions (HMMA/HGMMA) ``cuobjdump`` finds in each (the
+   bf16 kernels must have some);
 3. kernels — every kernel of the serving and training paths against its
    plain PyTorch version on the card, at the main paths' shapes (bf16 and
-   int8 pools; the backward kernels at the training shape, ragged, f32,
-   head dims 32/64/256, a batch with a length-0 and a length-1 sequence,
-   S = 1,001 at G = 1 and HD 256 at S = 2,048; the read-only paged
-   attention and the (B, KV)-grid
-   decode update at the report lane's shape, ragged, int8, head dims
-   32/64/256 and the written row's three positions in a page, the update
-   also against the grid-"b" kernel), with times for the kernel, the plain
-   version and, where one exists, the PyTorch library call that computes
-   the same function;
+   int8 pools; the flash forward and the backward kernels at the training
+   shape, ragged, f32, head dims 32/64/256, a batch with a length-0 and a
+   length-1 sequence, S = 1,001 at G = 1, the backward also at HD 256 and
+   S = 2,048; the paged chunk at head dims 32/64/256, int8 pools, 16-row
+   pages and a padded last chunk; the read-only paged attention and the
+   (B, KV)-grid decode update at the report lane's shape, ragged, int8,
+   head dims 32/64/256 and the written row's three positions in a page,
+   the update also against the grid-"b" kernel), with times for the
+   kernel, the plain version and, where one exists, the PyTorch library
+   call that computes the same function (for the flash forward without
+   padded rows also SDPA's causal flash backend).  The flash forward and
+   the paged chunk attention, and their library calls, are timed from
+   CUDA graphs (``graph_ms``): at a few microseconds of device time a
+   host-timed loop measures the wrappers' Python;
 4. engine  — ``LLMEngine.generate_text`` on dv-base at its full width and
    depth (12 layers) with random weights from a seed and the dv_bpe_16k
    tokenizer: 8 concurrent json_mode report prompts of 300-900 tokens,
@@ -114,6 +120,34 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters: int) -> float:
+    """Mean device time of ``fn()`` with the host's launch cost left out:
+    ``iters`` calls captured in one CUDA graph (after a warm-up call on a
+    side stream), replayed, and timed with CUDA events.  For a call of a
+    few microseconds of device time, :func:`cuda_ms` measures the
+    wrapper's host time instead."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / iters
+
+
 def device_ms(fn, iters: int) -> float:
     """Device time of one ``fn()``: the sum of the kernels it launches
     over ``iters`` calls (torch.profiler), per call.  Unlike
@@ -164,14 +198,18 @@ def phase_device() -> dict:
     return info
 
 
-# a mangled backward kernel name: ..flash_bwd_dq_tc_kernelILi128EE..
-_BWD_KERNEL = re.compile(r"(flash_bwd_(?:dq|dkv)_(?:tc|f32)_kernel)ILi(\d+)E")
+# a mangled attention kernel name: ..flash_bwd_dq_tc_kernelILi128EE..,
+# ..flash_fwd_f32_kernelIfLi128EE.., ..paged_chunk_tc_kernelIaLi128EE..
+_ATTN_KERNEL = re.compile(
+    r"((?:flash_bwd_(?:dq|dkv)|flash_fwd|paged_chunk)_(?:tc|f32)_kernel)"
+    r"I(f|a|13__nv_bfloat16)?Li(\d+)E")
+_MANGLED_TYPES = {"f": "float,", "a": "int8,", "13__nv_bfloat16": "bf16,"}
 
 
 def _sass_mma_counts(so_path: str) -> dict:
-    """Tensor-core instructions (HMMA, HGMMA) in each backward kernel of
-    the built library, from ``cuobjdump -sass``; empty where the toolkit
-    has no cuobjdump."""
+    """Tensor-core instructions (HMMA, HGMMA) in each attention kernel of
+    the built library (the flash forward and backward, the paged chunk),
+    from ``cuobjdump -sass``; empty where the toolkit has no cuobjdump."""
     home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
     tool = shutil.which("cuobjdump") or os.path.join(home, "bin",
                                                      "cuobjdump")
@@ -182,8 +220,9 @@ def _sass_mma_counts(so_path: str) -> dict:
     counts, name = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            m = _BWD_KERNEL.search(line)
-            name = f"{m.group(1)}<{m.group(2)}>" if m else None
+            m = _ATTN_KERNEL.search(line)
+            name = (f"{m.group(1)}<{_MANGLED_TYPES.get(m.group(2), '')}"
+                    f"{m.group(3)}>" if m else None)
             if name:
                 counts[name] = {"HMMA": 0, "HGMMA": 0}
         elif name:
@@ -199,6 +238,10 @@ def phase_build() -> dict:
     from deepvision_tpu_torch.engine.kernels.flash_attention import (
         HEAD_DIMS,
         flash_bwd_kernel_info,
+        flash_fwd_kernel_info,
+    )
+    from deepvision_tpu_torch.engine.kernels.paged_chunk import (
+        paged_chunk_kernel_info,
     )
 
     t0 = time.monotonic()
@@ -211,26 +254,44 @@ def phase_build() -> dict:
                 if "registers" in line or ("spill" in line
                                            and " 0 bytes spill" not in line):
                     regs.append(line.strip().replace("ptxas info    : ", ""))
-    # each backward kernel as the card runs it: registers, dynamic shared
+    # each attention kernel as the card runs it: registers, dynamic shared
     # memory, local (spill) bytes and blocks an SM
+    bf16, f32 = torch.bfloat16, torch.float32
     bwd = {f"{kind}_{dtype}_hd{hd}": flash_bwd_kernel_info(kind, hd, dtype)
-           for kind in ("dq", "dkv")
-           for dtype in (torch.bfloat16, torch.float32) for hd in HEAD_DIMS}
+           for kind in ("dq", "dkv") for dtype in (bf16, f32)
+           for hd in HEAD_DIMS}
+    fwd = {f"{dtype}_hd{hd}": flash_fwd_kernel_info(hd, dtype)
+           for dtype in (bf16, f32) for hd in HEAD_DIMS}
+    chunk = {f"{pool}_hd{hd}": paged_chunk_kernel_info(hd, pool)
+             for pool in (bf16, torch.int8) for hd in HEAD_DIMS}
+    spills = {f"{group}/{n}": v["local_bytes"]
+              for group, table in (("flash_fwd", fwd), ("flash_bwd", bwd),
+                                   ("paged_chunk", chunk))
+              for n, v in table.items()
+              if ("bfloat16" in n or group == "paged_chunk")
+              and v["local_bytes"]}
+    if spills:  # every tensor-core kernel keeps its tiles in registers
+        raise AssertionError(f"tensor-core attention kernels with local "
+                             f"(spill) memory: {spills}")
     mma = _sass_mma_counts(info["so_path"])
+    # the bf16 tensor-core kernels: dQ, dK/dV and the forward at every head
+    # dim, the chunk kernel for both pool dtypes
     tc = {n: c for n, c in mma.items() if "_tc_kernel" in n}
-    if mma and (len(tc) != 2 * len(HEAD_DIMS)
+    if mma and (len(tc) != 5 * len(HEAD_DIMS)
                 or min(c["HMMA"] + c["HGMMA"] for c in tc.values()) <= 0):
-        raise AssertionError(f"bf16 backward kernels without tensor-core "
+        raise AssertionError(f"bf16 attention kernels without tensor-core "
                              f"instructions: {tc}")
     out = {"phase": "build", "seconds": time.monotonic() - t0,
            "sources": [os.path.relpath(p, ROOT) for p in _build.sources()],
-           "ptxas": regs[:48], "flash_bwd_kernels": bwd,
-           "flash_bwd_sass_mma": mma or "cuobjdump not found"}
+           "ptxas": regs[:48], "flash_fwd_kernels": fwd,
+           "flash_bwd_kernels": bwd, "paged_chunk_kernels": chunk,
+           "attention_sass_mma": mma or "cuobjdump not found"}
     emit(out)
     return out
 
 
-def _flash_case(name, B, H, KV, S, HD, lens, dtype, gen, iters=20):
+def _flash_case(name, B, H, KV, S, HD, lens, dtype, gen, iters=20,
+                profiled=False):
     from deepvision_tpu_torch.engine.kernels import flash_attention as fa
 
     dev = torch.device("cuda")
@@ -247,17 +308,34 @@ def _flash_case(name, B, H, KV, S, HD, lens, dtype, gen, iters=20):
     tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
     if not err <= tol or not torch.isfinite(got).all():
         raise AssertionError(f"flash {name}: max_abs_err {err} > {tol}")
-    ms = cuda_ms(lambda: fa.flash_attention(q, k, v, seq), iters)
-    ms_lse = cuda_ms(lambda: fa.flash_forward(q, k, v, seq, with_lse=True),
-                     iters)
+    # the kernel and the library call timed alike: launches replayed from
+    # a CUDA graph (graph_ms); back-to-back from the host too (events_ms)
+    ms = graph_ms(lambda: fa.flash_attention(q, k, v, seq), iters)
+    events_ms = cuda_ms(lambda: fa.flash_attention(q, k, v, seq), iters)
+    ms_lse = graph_ms(lambda: fa.flash_forward(q, k, v, seq, with_lse=True),
+                      iters)
     plain_ms = cuda_ms(lambda: fa.flash_attention_reference(q, k, v, seq),
                        max(2, iters // 5))
     idx = torch.arange(S, device=dev)
     mask = ((idx[None, :] <= idx[:, None])[None]
             & (idx[None, None, :] < seq.long()[:, None, None]))[:, None]
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    library_ms = cuda_ms(
+    library_ms = graph_ms(
         lambda: sdpa(q, k, v, attn_mask=mask, enable_gqa=True), iters)
+    library_events_ms = cuda_ms(
+        lambda: sdpa(q, k, v, attn_mask=mask, enable_gqa=True), iters)
+    # a second yardstick where no row is padded: SDPA's causal flash backend
+    sdpa_causal_ms = None
+    if all(n == S for n in lens):
+        sdpa_causal_ms = graph_ms(
+            lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True), iters)
+    # device time alone (the profiler's kernel sums): back-to-back calls of
+    # a short kernel are bound by the wrapper's host time
+    dev_ms = library_dev_ms = None
+    if profiled:
+        dev_ms = device_ms(lambda: fa.flash_attention(q, k, v, seq), iters)
+        library_dev_ms = device_ms(
+            lambda: sdpa(q, k, v, attn_mask=mask, enable_gqa=True), iters)
     itemsize = q.element_size()
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * itemsize + 4 * B
     pairs = sum(sum(min(r + 1, n) for r in range(S)) for n in lens)
@@ -266,9 +344,13 @@ def _flash_case(name, B, H, KV, S, HD, lens, dtype, gen, iters=20):
     bound_ms, bound_by = bound(nbytes, flops, rate)
     out = {"case": name, "shape": [B, H, KV, S, HD], "seq_lens": lens,
            "dtype": str(dtype).split(".")[-1], "max_abs_err": err,
-           "tol": tol, "ms": ms, "ms_with_lse": ms_lse, "plain_ms": plain_ms,
-           "library_ms": library_ms, "bound_ms": bound_ms,
-           "bound_by": bound_by, "gflop": flops / 1e9}
+           "tol": tol, "ms": ms, "ms_with_lse": ms_lse, "events_ms": events_ms,
+           "plain_ms": plain_ms, "library_ms": library_ms,
+           "library_events_ms": library_events_ms,
+           "sdpa_causal_ms": sdpa_causal_ms,
+           "device_ms": dev_ms, "library_device_ms": library_dev_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by, "gflop": flops / 1e9,
+           "tflops": flops / 1e9 / ms}
     emit({"phase": "kernels", "kernel": "flash_fwd", **out})
     return out
 
@@ -617,7 +699,7 @@ def paged_cases(gen) -> dict:
 
 
 def _chunk_case(name, B, C, H, KV, HD, P, MP, starts, ends, pool_dtype, gen,
-                iters=20):
+                iters=20, profiled=False):
     """``paged_chunk_attention`` against its plain version: every output
     row (both compute the padded rows of a last chunk with one formula)."""
     from deepvision_tpu_torch.engine.kernels import paged_chunk as pc
@@ -643,18 +725,27 @@ def _chunk_case(name, B, C, H, KV, HD, P, MP, starts, ends, pool_dtype, gen,
         bt[i, -(-n // P):] = 0
     st = torch.tensor(starts, dtype=torch.int32, device=dev)
     en = torch.tensor(ends, dtype=torch.int32, device=dev)
-    got = pc.paged_chunk_attention(q, kp, vp, bt, st, en, k_scale=ks,
-                                   v_scale=vs)
+    splits = pc.chunk_splits(B, C, H, KV, HD, P * MP, dev)
     want = pc.paged_chunk_attention_reference(q, kp, vp, bt, st, en,
                                               k_scale=ks, v_scale=vs)
-    torch.cuda.synchronize()
-    err = (got.float() - want.float()).abs().max().item()
     # bf16 outputs: both sides round one fp32 value (1 bf16 ulp of an O(1)
-    # output is 2^-8) after summing in another order
+    # output is 2^-8) after summing in another order; the kernel with the
+    # wrapper's column split and without one (what a large grid runs)
     tol = 2e-2
-    if not err <= tol or not torch.isfinite(got).all():
-        raise AssertionError(f"chunk {name}: max_abs_err {err} > {tol}")
-    ms = cuda_ms(lambda: pc.paged_chunk_attention(
+    errs = {}
+    for n_split in sorted({splits, 1}):
+        got = pc.paged_chunk_attention(q, kp, vp, bt, st, en, k_scale=ks,
+                                       v_scale=vs, splits=n_split)
+        torch.cuda.synchronize()
+        errs[n_split] = (got.float() - want.float()).abs().max().item()
+        if not errs[n_split] <= tol or not torch.isfinite(got).all():
+            raise AssertionError(f"chunk {name} (splits {n_split}): "
+                                 f"max_abs_err {errs[n_split]} > {tol}")
+    err = max(errs.values())
+    # timed as in _flash_case: from a CUDA graph, and from the host
+    ms = graph_ms(lambda: pc.paged_chunk_attention(
+        q, kp, vp, bt, st, en, k_scale=ks, v_scale=vs), iters)
+    events_ms = cuda_ms(lambda: pc.paged_chunk_attention(
         q, kp, vp, bt, st, en, k_scale=ks, v_scale=vs), iters)
     plain_ms = cuda_ms(lambda: pc.paged_chunk_attention_reference(
         q, kp, vp, bt, st, en, k_scale=ks, v_scale=vs), max(2, iters // 5))
@@ -677,8 +768,18 @@ def _chunk_case(name, B, C, H, KV, HD, P, MP, starts, ends, pool_dtype, gen,
             & (col[None, None, :] < en.long()[:, None, None]))[:, None]
     qt = q.transpose(1, 2).contiguous()
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    library_ms = cuda_ms(
+    library_ms = graph_ms(
         lambda: sdpa(qt, kd, vd, attn_mask=mask, enable_gqa=True), iters)
+    library_events_ms = cuda_ms(
+        lambda: sdpa(qt, kd, vd, attn_mask=mask, enable_gqa=True), iters)
+    dev_ms = dev_ms_one_split = library_dev_ms = None
+    if profiled:  # device time alone, as in _flash_case
+        dev_ms = device_ms(lambda: pc.paged_chunk_attention(
+            q, kp, vp, bt, st, en, k_scale=ks, v_scale=vs), iters)
+        dev_ms_one_split = device_ms(lambda: pc.paged_chunk_attention(
+            q, kp, vp, bt, st, en, k_scale=ks, v_scale=vs, splits=1), iters)
+        library_dev_ms = device_ms(
+            lambda: sdpa(qt, kd, vd, attn_mask=mask, enable_gqa=True), iters)
     itemsize = kp.element_size()
     live_cols = sum(ends)
     nbytes = (2 * q.numel() * 2 + 2 * live_cols * KV * HD * itemsize
@@ -691,9 +792,13 @@ def _chunk_case(name, B, C, H, KV, HD, P, MP, starts, ends, pool_dtype, gen,
     out = {"case": name, "shape": [B, C, H, KV, HD, P, MP],
            "starts": starts, "ends": ends,
            "pool_dtype": str(pool_dtype).split(".")[-1], "max_abs_err": err,
-           "tol": tol, "ms": ms, "plain_ms": plain_ms,
-           "library_ms": library_ms, "bound_ms": bound_ms,
-           "bound_by": bound_by, "gflop": flops / 1e9, "mbytes": nbytes / 1e6}
+           "max_abs_err_by_splits": errs, "splits": splits,
+           "tol": tol, "ms": ms, "events_ms": events_ms, "plain_ms": plain_ms,
+           "library_ms": library_ms, "library_events_ms": library_events_ms,
+           "device_ms": dev_ms, "device_ms_one_split": dev_ms_one_split,
+           "library_device_ms": library_dev_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
+           "tflops": flops / 1e9 / ms}
     emit({"phase": "kernels", "kernel": "paged_chunk", **out})
     return out
 
@@ -707,7 +812,8 @@ def chunk_cases(gen) -> dict:
         tag = "" if pool == bf16 else "_int8"
         for start, n in ((640, 896), (0, 256), (1792, 1900)):
             out = _chunk_case(f"main_s{start}_n{n}{tag}", 1, 256, 6, 2, 128,
-                              64, 32, [start], [n], pool, gen)
+                              64, 32, [start], [n], pool, gen,
+                              profiled=start == 640)
             if main is None:
                 main = out
     _chunk_case("b2_ragged", 2, 256, 6, 2, 128, 64, 32, [256, 1024],
@@ -717,6 +823,14 @@ def chunk_cases(gen) -> dict:
     _chunk_case("hd64_g8", 1, 32, 8, 1, 64, 16, 8, [16], [40], bf16, gen,
                 iters=10)
     _chunk_case("hd256", 1, 64, 8, 1, 256, 64, 4, [64], [128], bf16, gen,
+                iters=10)
+    # the tensor-core tiling's edges: int8 pools at head dims 64 and 256,
+    # 16-row pages under 64-column tiles at head dim 128
+    _chunk_case("hd64_g8_int8", 1, 32, 8, 1, 64, 16, 8, [16], [40], i8, gen,
+                iters=10)
+    _chunk_case("hd256_int8", 1, 64, 8, 1, 256, 64, 4, [64], [128], i8, gen,
+                iters=10)
+    _chunk_case("p16", 1, 128, 6, 2, 128, 16, 64, [300], [428], bf16, gen,
                 iters=10)
     return main
 
@@ -728,17 +842,24 @@ def phase_kernels() -> dict:
     bf16 = torch.bfloat16
     flash = [
         _flash_case("main_b4_s1024", 4, 6, 2, 1024, 128,
-                    [1024, 901, 640, 300], bf16, gen),
+                    [1024, 901, 640, 300], bf16, gen, profiled=True),
         _flash_case("b4_s2048", 4, 6, 2, 2048, 128,
                     [2048, 1500, 977, 300], bf16, gen, iters=10),
         _flash_case("train_b8_s2048", 8, 6, 2, 2048, 128, [2048] * 8, bf16,
-                    gen, iters=10),
+                    gen, iters=10, profiled=True),
         _flash_case("b4_s256", 4, 6, 2, 256, 128, [256, 200, 77, 1], bf16,
                     gen),
         _flash_case("hd32", 2, 4, 2, 256, 32, [256, 131], bf16, gen),
         _flash_case("hd256", 1, 8, 1, 512, 256, [390], bf16, gen),
         _flash_case("hd64_f32", 2, 4, 2, 256, 64, [256, 99], torch.float32,
                     gen),
+        # the tensor-core tiling's edges: a length-0 and a length-1
+        # sequence in one batch; S a multiple of no tile at G = 1; head
+        # dim 64 at G = 8
+        _flash_case("len0_len1", 4, 6, 2, 256, 128, [256, 0, 1, 97], bf16,
+                    gen),
+        _flash_case("s1001_g1", 2, 4, 4, 1001, 128, [1001, 777], bf16, gen),
+        _flash_case("hd64_g8", 2, 8, 1, 256, 64, [256, 77], bf16, gen),
     ]
     ragged = [2048, 1, 64, 65, 700, 1024, 1500, 33]
     decode = [
@@ -1604,7 +1725,7 @@ KERNELS = {
     "flash_fwd": {
         "source": "deepvision_tpu_torch/engine/kernels/csrc/flash_fwd.cu",
         "replaces": "deepvision_tpu/engine/kernels/flash_attention.py:33",
-        "compute_route": "f32_cuda_core",
+        "compute_route": "tensor_core",
     },
     "paged_decode_update": {
         "source": "deepvision_tpu_torch/engine/kernels/csrc/paged_decode.cu",
@@ -1614,7 +1735,7 @@ KERNELS = {
     "paged_chunk": {
         "source": "deepvision_tpu_torch/engine/kernels/csrc/paged_chunk.cu",
         "replaces": "deepvision_tpu/engine/kernels/paged_chunk.py:31",
-        "compute_route": "f32_cuda_core",
+        "compute_route": "tensor_core",
     },
     "flash_bwd_dq": {
         "source": "deepvision_tpu_torch/engine/kernels/csrc/flash_bwd.cu",
@@ -1676,7 +1797,11 @@ def main() -> int:
          "bound_ms": main_cases[name]["bound_ms"],
          "bound_by": main_cases[name]["bound_by"],
          "library_ms": main_cases[name]["library_ms"],
-         "tflops": main_cases[name]["gflop"] / main_cases[name]["ms"]}
+         "tflops": main_cases[name]["gflop"] / main_cases[name]["ms"],
+         # the same from the host, and the profiler's kernel time, where
+         # the case has them
+         "events_ms": main_cases[name].get("events_ms"),
+         "device_ms": main_cases[name].get("device_ms")}
         for name in KERNELS]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["name"],
                                  "count": dev["count"]}})

@@ -42,6 +42,8 @@ _SIGNATURES = {
     # q, k, v, seq_lens, out, lse (or null), B, H, KV, S, HD, dtype, scale,
     # stream
     "dv_flash_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+    # HD, dtype, out int[5]
+    "dv_flash_fwd_info": [_I, _I, _P],
     # q, k, v, dout, lse, delta, seq_lens, dq, B, H, KV, S, HD, dtype,
     # scale, stream
     "dv_flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _P,
@@ -63,10 +65,12 @@ _SIGNATURES = {
     "dv_paged_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                            _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     # q, k_pages, v_pages, block_tables, chunk_starts, seq_lens, k_scale,
-    # v_scale, out, B, C, H, KV, N, P, MP, HD, q_dtype, pool_dtype, scale,
-    # stream
-    "dv_paged_chunk": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                       _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    # v_scale, out, part_acc (or null), part_ml (or null), B, C, H, KV, N,
+    # P, MP, HD, q_dtype, pool_dtype, nsplit, scale, stream
+    "dv_paged_chunk": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                       _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    # HD, pool_dtype, out int[5]
+    "dv_paged_chunk_info": [_I, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -107,13 +111,14 @@ def _compile(so_path: str, log_path: str) -> None:
             cmd = [nvcc, *NVCC_FLAGS, "-c", src, "-o", obj]
             jobs.append((obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
-        logs, failed = [], []
+        logs, failed, failed_logs = [], [], []
         for obj, proc in jobs:
             out = proc.communicate()[0].decode(errors="replace")
             logs.append(f"== {os.path.basename(obj)} (rc {proc.returncode})"
                         f"\n{out}")
             if proc.returncode:
                 failed.append(obj)
+                failed_logs.append(logs[-1])
         tmp_so = os.path.join(work, "lib.so")
         if not failed:
             link = subprocess.run(
@@ -124,11 +129,13 @@ def _compile(so_path: str, log_path: str) -> None:
                         + link.stdout.decode(errors="replace"))
             if link.returncode:
                 failed.append("link")
+                failed_logs.append(logs[-1])
         with open(log_path, "w") as fh:
             fh.write("\n".join(logs))
         if failed:
-            raise RuntimeError(
-                f"nvcc failed for {failed}; log:\n" + "\n".join(logs)[-8000:])
+            # the failed steps' own output (errors come first in it)
+            raise RuntimeError(f"nvcc failed for {failed}; log:\n"
+                               + "\n".join(failed_logs)[:8000])
         os.replace(tmp_so, so_path)
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -160,6 +167,18 @@ def build_info() -> dict:
     """``{"build_s", "log_path", "so_path"}`` of the loaded library (after
     :func:`library`)."""
     return {k: _state[k] for k in ("build_s", "log_path", "so_path")}
+
+
+def kernel_info(fn_name: str, *args) -> dict:
+    """How the card runs one kernel, from the library's ``*_info`` export
+    ``fn_name(*args, out)``: registers a thread, dynamic shared memory and
+    local (spill) bytes, blocks an SM and threads a block."""
+    vals = (ctypes.c_int * 5)()
+    rc = getattr(library(), fn_name)(*args, ctypes.cast(vals,
+                                                         ctypes.c_void_p))
+    check(rc, f"{fn_name}{args}")
+    return dict(zip(("registers", "smem_bytes", "local_bytes",
+                     "blocks_per_sm", "threads"), vals))
 
 
 def check(rc: int, name: str) -> None:

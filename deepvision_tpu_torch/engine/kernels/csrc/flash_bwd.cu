@@ -84,93 +84,13 @@
 // block an SM) and synchronous copies; this design moves the products to
 // the tensor cores, halves the staged bytes and overlaps the copies.
 
-#include "common.cuh"
+#include "tensor_core.cuh"
 
 namespace {
 
 // ---------------------------------------------------------------------------
 // bf16: tensor-core kernels
 // ---------------------------------------------------------------------------
-
-using bf16 = __nv_bfloat16;
-
-constexpr float LOG2E = 1.4426950408889634f;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Byte address of 16-byte chunk c of row r in a swizzled [rows][HD] tile.
-template <int HD>
-__device__ __forceinline__ uint32_t tile_addr(uint32_t base, int r, int c) {
-  const int sw = HD >= 64 ? (r & 7) : ((r >> 1) & 3);
-  return base + static_cast<uint32_t>(r * HD + ((c ^ sw) << 3)) * 2u;
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
-                                          bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// c += a . b on the tensor cores (m16n8k16, bf16 operands, fp32 sums).
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Copy ROWS rows of HD bf16 (contiguous from src) into a swizzled tile;
-// rows at or past `valid` are zero-filled.
-template <int HD, int ROWS, int NT>
-__device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src,
-                                          int valid, int tid) {
-  constexpr int CPR = HD / 8;  // 16-byte chunks a row
-  static_assert((ROWS * CPR) % NT == 0, "tile chunks must divide threads");
-#pragma unroll
-  for (int it = 0; it < ROWS * CPR / NT; ++it) {
-    const int i = tid + it * NT, r = i / CPR, c = i % CPR;
-    const bool ok = r < valid;
-    cp_async16(tile_addr<HD>(dst, r, c),
-               ok ? src + static_cast<size_t>(r) * HD + c * 8 : src, ok);
-  }
-}
 
 template <int HD>
 struct TcDq {
@@ -919,38 +839,18 @@ int dispatch(const BwdArgs& a, bool dq, int HD, int dtype) {
   }
 }
 
-// Registers, dynamic shared memory, local (spill) bytes, blocks an SM
-// and threads of one kernel, as the card will run it.
-template <typename Kernel>
-int kernel_info(Kernel kernel, int threads, int bytes, int* out) {
-  cudaError_t err = dv_allow_smem(kernel, bytes);
-  cudaFuncAttributes attr;
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
-  int blocks = 0;
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
-                                                        threads, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  out[0] = attr.numRegs;
-  out[1] = bytes;
-  out[2] = static_cast<int>(attr.localSizeBytes);
-  out[3] = blocks;
-  out[4] = threads;
-  return 0;
-}
-
 template <int HD>
 int info_hd(bool dq, int dtype, int* out) {
   if (dtype == DV_BF16)
-    return dq ? kernel_info(flash_bwd_dq_tc_kernel<HD>, TcDq<HD>::NT,
-                            TcDq<HD>::BYTES, out)
-              : kernel_info(flash_bwd_dkv_tc_kernel<HD>, TcDkv<HD>::NT,
-                            TcDkv<HD>::BYTES, out);
+    return dq ? dv_kernel_info(flash_bwd_dq_tc_kernel<HD>, TcDq<HD>::NT,
+                               TcDq<HD>::BYTES, out)
+              : dv_kernel_info(flash_bwd_dkv_tc_kernel<HD>, TcDkv<HD>::NT,
+                               TcDkv<HD>::BYTES, out);
   if (dtype == DV_F32)
-    return dq ? kernel_info(flash_bwd_dq_f32_kernel<HD>, NT32,
-                            DqTile<HD>::BYTES, out)
-              : kernel_info(flash_bwd_dkv_f32_kernel<HD>, NT32,
-                            DkvTile<HD>::BYTES, out);
+    return dq ? dv_kernel_info(flash_bwd_dq_f32_kernel<HD>, NT32,
+                               DqTile<HD>::BYTES, out)
+              : dv_kernel_info(flash_bwd_dkv_f32_kernel<HD>, NT32,
+                               DkvTile<HD>::BYTES, out);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

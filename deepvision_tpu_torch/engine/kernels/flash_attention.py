@@ -16,8 +16,6 @@ launches in ``<wrapper>.launches``.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from deepvision_tpu_torch.engine.kernels import _build
@@ -118,18 +116,20 @@ def flash_bwd_dkv(q, k, v, seq_lens, dout, lse, delta):
 flash_bwd_dkv.launches = 0
 
 
+def flash_fwd_kernel_info(head_dim: int, dtype) -> dict:
+    """How the card runs the forward kernel of ``dtype`` (the bf16
+    tensor-core or the float32 CUDA-core route): registers a thread,
+    dynamic shared memory and local (spill) bytes, blocks an SM and threads
+    a block."""
+    return _build.kernel_info("dv_flash_fwd_info", head_dim,
+                              _build.DTYPE_CODES[dtype])
+
+
 def flash_bwd_kernel_info(kind: str, head_dim: int, dtype) -> dict:
-    """How the card runs one backward kernel (``kind`` "dq" or "dkv"; the
-    bf16 tensor-core or the float32 CUDA-core route): registers a thread,
-    dynamic shared memory and local (spill) bytes, blocks an SM and
-    threads a block."""
-    vals = (ctypes.c_int * 5)()
-    rc = _build.library().dv_flash_bwd_info(
-        int(kind == "dq"), head_dim, _build.DTYPE_CODES[dtype],
-        ctypes.cast(vals, ctypes.c_void_p))
-    _build.check(rc, f"flash_bwd_kernel_info({kind}, {head_dim}, {dtype})")
-    return dict(zip(("registers", "smem_bytes", "local_bytes",
-                     "blocks_per_sm", "threads"), vals))
+    """How the card runs one backward kernel (``kind`` "dq" or "dkv"), as
+    :func:`flash_fwd_kernel_info` reports the forward."""
+    return _build.kernel_info("dv_flash_bwd_info", int(kind == "dq"),
+                              head_dim, _build.DTYPE_CODES[dtype])
 
 
 def flash_bwd_delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:

@@ -11,6 +11,8 @@ the other.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from deepvision_tpu_torch.engine.kernels import _build
@@ -25,7 +27,8 @@ _NEG_INF = -1e30
 
 
 def paged_chunk_attention(q, k_pages, v_pages, block_tables, chunk_starts,
-                          seq_lens, *, k_scale=None, v_scale=None):
+                          seq_lens, *, k_scale=None, v_scale=None,
+                          splits=None):
     """One layer's attention for a prefill chunk over the page pools.
 
     Args:
@@ -37,6 +40,10 @@ def paged_chunk_attention(q, k_pages, v_pages, block_tables, chunk_starts,
       seq_lens: ``[B]`` int32 end of each chunk (columns ``< seq_lens``
         are valid).
       k_scale, v_scale: ``[KV]`` float32 static scales (int8 pools).
+      splits: how many blocks share each row tile's columns on the card
+        (their partial softmax merged by a second kernel); None chooses
+        from the grid (:func:`chunk_splits`).  The plain version has no
+        use for it.
 
     Returns ``[B, C, H, HD]`` in q's dtype: query ``c`` of head ``h``
     attends to columns ``col <= chunk_starts + c`` and ``col < seq_lens``
@@ -78,14 +85,27 @@ def paged_chunk_attention(q, k_pages, v_pages, block_tables, chunk_starts,
                              f"contiguous on {q.device}")
     if k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32:
         raise TypeError("paged_chunk_attention: scales must be float32")
+    if splits is None:
+        splits = chunk_splits(B, C, H, KV, HD, P * MP, q.device)
+    if not isinstance(splits, int) or splits < 1:
+        raise ValueError(f"paged_chunk_attention: splits {splits!r} is not "
+                         f"a positive int")
     out = torch.empty_like(q)
+    part_acc = part_ml = None
+    if splits > 1:  # each split's unnormalised (acc, m, l), fp32
+        rows = B * KV * splits * C * (H // KV)
+        part_acc = torch.empty(rows * HD, dtype=torch.float32,
+                               device=q.device)
+        part_ml = torch.empty(rows * 2, dtype=torch.float32, device=q.device)
     lib = _build.library()
     rc = lib.dv_paged_chunk(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         block_tables.data_ptr(), chunk_starts.data_ptr(), seq_lens.data_ptr(),
         k_scale.data_ptr(), v_scale.data_ptr(), out.data_ptr(),
+        part_acc.data_ptr() if splits > 1 else None,
+        part_ml.data_ptr() if splits > 1 else None,
         B, C, H, KV, N, P, MP, HD, _build.DTYPE_CODES[q.dtype],
-        _build.DTYPE_CODES[k_pages.dtype], HD ** -0.5,
+        _build.DTYPE_CODES[k_pages.dtype], splits, HD ** -0.5,
         _build.stream_ptr(q.device))
     _build.check(rc, "paged_chunk_attention")
     paged_chunk_attention.launches += 1
@@ -93,6 +113,35 @@ def paged_chunk_attention(q, k_pages, v_pages, block_tables, chunk_starts,
 
 
 paged_chunk_attention.launches = 0
+
+
+_ROWS_PER_BLOCK = 64   # csrc/paged_chunk.cu TcChunk::BR
+_BLOCKS_PER_SM = 2     # TcChunk::MIN_BLOCKS
+_MAX_SPLITS = 8
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def chunk_splits(B, C, H, KV, HD, max_cols, device) -> int:
+    """Column splits for the chunk kernel: enough blocks to fill the card
+    twice over (up to 8 splits), and at least two column tiles a split at
+    the longest sequence the block tables can hold (``max_cols``); 1 when
+    the grid of row tiles alone fills it."""
+    blocks = -(-C * (H // KV) // _ROWS_PER_BLOCK) * KV * B
+    max_tiles = -(-max_cols // (32 if HD >= 256 else 64))
+    slots = _sm_count(device) * _BLOCKS_PER_SM
+    return max(1, min(_MAX_SPLITS, slots // blocks, max_tiles // 2))
+
+
+def paged_chunk_kernel_info(head_dim: int, pool_dtype) -> dict:
+    """How the card runs the chunk kernel for ``pool_dtype`` pools:
+    registers a thread, dynamic shared memory and local (spill) bytes,
+    blocks an SM and threads a block."""
+    return _build.kernel_info("dv_paged_chunk_info", head_dim,
+                              _build.DTYPE_CODES[pool_dtype])
 
 
 def paged_chunk_attention_reference(q, k_pages, v_pages, block_tables,

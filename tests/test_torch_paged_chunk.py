@@ -281,6 +281,20 @@ def test_wrapper_refuses_other_devices():
         tpc.paged_chunk_attention(meta, None, None, None, lens, lens)
 
 
+def test_chunk_splits_fill_the_card(monkeypatch):
+    """The column split the wrapper picks for the kernel (a card of 132
+    SMs, two blocks an SM): enough blocks to fill it twice, at most 8
+    splits, at least two 64-column tiles (32 at HD 256) a split."""
+    monkeypatch.setattr(tpc, "_sm_count", lambda device: 132)
+    # the main path's resume: 12 row tiles x 2 kv heads = 24 blocks
+    assert tpc.chunk_splits(1, 256, 6, 2, 128, 2048, "cuda") == 8
+    # row tiles alone fill the card: no split
+    assert tpc.chunk_splits(16, 256, 6, 2, 128, 2048, "cuda") == 1
+    # too few columns to split
+    assert tpc.chunk_splits(1, 64, 4, 2, 32, 128, "cuda") == 1
+    assert tpc.chunk_splits(1, 64, 8, 1, 256, 256, "cuda") == 4
+
+
 # -- the CUDA kernel (GPU only) ----------------------------------------------
 
 @pytest.mark.cuda
