@@ -7,7 +7,8 @@ Phases, each printing one JSON line with its own seconds:
 1. device  — the card's name and power limit;
 2. build   — the CUDA kernels compiled from ``csrc/`` (nvcc + ctypes);
    each attention kernel's registers, shared memory, spills and blocks an
-   SM (the flash forward and backward, the paged chunk), and the
+   SM (the flash forward and backward, the paged chunk, the decode
+   kernels), and the
    tensor-core instructions (HMMA/HGMMA) ``cuobjdump`` finds in each (the
    bf16 kernels must have some);
 3. kernels — every kernel of the serving and training paths against its
@@ -16,16 +17,21 @@ Phases, each printing one JSON line with its own seconds:
    shape, ragged, f32, head dims 32/64/256, a batch with a length-0 and a
    length-1 sequence, S = 1,001 at G = 1, the backward also at HD 256 and
    S = 2,048; the paged chunk at head dims 32/64/256, int8 pools, 16-row
-   pages and a padded last chunk; the read-only paged attention and the
-   (B, KV)-grid decode update at the report lane's shape, ragged, int8,
-   head dims 32/64/256 and the written row's three positions in a page,
-   the update also against the grid-"b" kernel), with times for the
-   kernel, the plain version and, where one exists, the PyTorch library
-   call that computes the same function (for the flash forward without
-   padded rows also SDPA's causal flash backend).  The flash forward and
-   the paged chunk attention, and their library calls, are timed from
-   CUDA graphs (``graph_ms``): at a few microseconds of device time a
-   host-timed loop measures the wrappers' Python;
+   pages and a padded last chunk; the decode step (#1), the read-only
+   paged attention (#6) and the (B, KV)-grid decode update (#7) at the
+   report lane's shape (B=8, len 1,024) in bf16 and int8 pools, at B=1
+   and B=32, ragged and at head dims 32/64/256, each with the wrapper's
+   column split and with splits forced to 1, the write's destination row
+   poisoned, #7 also against #1; then the split's edges: lengths 1, P,
+   P+1 and P*MP beside an inactive slot at every split count from 1 to
+   more splits than pages, GQA groups 1/2/3/8 at head dims 32-256), with
+   times for the kernel, the plain version and, where one exists, the
+   PyTorch library call that computes the same function (for the flash
+   forward without padded rows also SDPA's causal flash backend).  The
+   flash forward, the paged chunk attention and the decode kernels, and
+   their library calls, are timed from CUDA graphs (``graph_ms``): at a
+   few microseconds of device time a host-timed loop measures the
+   wrappers' Python;
 4. engine  — ``LLMEngine.generate_text`` on dv-base at its full width and
    depth (12 layers) with random weights from a seed and the dv_bpe_16k
    tokenizer: 8 concurrent json_mode report prompts of 300-900 tokens,
@@ -68,8 +74,9 @@ Phases, each printing one JSON line with its own seconds:
    ``load_or_init`` must give back the same bits; one step is profiled;
 10. the card's name and power limit again, then the ``kernels`` line the
    benchmark contract reads (seven kernels, each with its achieved
-   TFLOP/s and whether it computes on the tensor cores or in fp32 on the
-   CUDA cores);
+   TFLOP/s, whether it computes on the tensor cores or in fp32 on the
+   CUDA cores and, for the kernels that split columns, the split count
+   and the time unsplit);
 11. shutdown, then the last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the script exits non-zero without the last
@@ -148,11 +155,13 @@ def graph_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int) -> float:
+def device_ms(fn, iters: int, by_kernel: bool = False):
     """Device time of one ``fn()``: the sum of the kernels it launches
     over ``iters`` calls (torch.profiler), per call.  Unlike
     :func:`cuda_ms` it leaves out the host's launch cost, which bounds
-    back-to-back calls of a short kernel."""
+    back-to-back calls of a short kernel.  With ``by_kernel`` also the
+    time a call of each kernel, by the start of its name:
+    ``(total, {name: ms})``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -163,11 +172,16 @@ def device_ms(fn, iters: int) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total = 0.0
+    total, kernels = 0.0, {}
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA:
             us = getattr(e, "self_device_time_total", None)
-            total += e.self_cuda_time_total if us is None else us
+            us = e.self_cuda_time_total if us is None else us
+            total += us
+            name = e.key[:60]
+            kernels[name] = kernels.get(name, 0.0) + us / 1e3 / iters
+    if by_kernel:
+        return total / 1e3 / iters, kernels
     return total / 1e3 / iters
 
 
@@ -240,6 +254,10 @@ def phase_build() -> dict:
         flash_bwd_kernel_info,
         flash_fwd_kernel_info,
     )
+    from deepvision_tpu_torch.engine.kernels.paged_attention import (
+        paged_attention_kernel_info,
+        paged_decode_kernel_info,
+    )
     from deepvision_tpu_torch.engine.kernels.paged_chunk import (
         paged_chunk_kernel_info,
     )
@@ -264,15 +282,27 @@ def phase_build() -> dict:
            for dtype in (bf16, f32) for hd in HEAD_DIMS}
     chunk = {f"{pool}_hd{hd}": paged_chunk_kernel_info(hd, pool)
              for pool in (bf16, torch.int8) for hd in HEAD_DIMS}
+    # the split decode kernels: #1 at every head dim and pool dtype for
+    # the served groups (dv-fast 2, dv-base 3) and the largest (8); #6 and
+    # #7 at the report lane's page size (64) and group (3), which size
+    # their shared memory
+    decode = {f"{pool}_hd{hd}_g{g}": paged_decode_kernel_info(hd, pool, g)
+              for pool in (bf16, torch.int8) for hd in HEAD_DIMS
+              for g in (2, 3, 8)}
+    paged = {f"{'write' if w else 'read'}_{pool}_hd{hd}":
+             paged_attention_kernel_info(hd, pool, w, 64, 3)
+             for w in (False, True) for pool in (bf16, torch.int8)
+             for hd in HEAD_DIMS}
     spills = {f"{group}/{n}": v["local_bytes"]
               for group, table in (("flash_fwd", fwd), ("flash_bwd", bwd),
-                                   ("paged_chunk", chunk))
+                                   ("paged_chunk", chunk),
+                                   ("paged_decode", decode))
               for n, v in table.items()
-              if ("bfloat16" in n or group == "paged_chunk")
+              if ("bfloat16" in n or group in ("paged_chunk", "paged_decode"))
               and v["local_bytes"]}
-    if spills:  # every tensor-core kernel keeps its tiles in registers
-        raise AssertionError(f"tensor-core attention kernels with local "
-                             f"(spill) memory: {spills}")
+    if spills:  # the tensor-core and decode kernels keep state in registers
+        raise AssertionError(f"attention kernels with local (spill) "
+                             f"memory: {spills}")
     mma = _sass_mma_counts(info["so_path"])
     # the bf16 tensor-core kernels: dQ, dK/dV and the forward at every head
     # dim, the chunk kernel for both pool dtypes
@@ -285,6 +315,7 @@ def phase_build() -> dict:
            "sources": [os.path.relpath(p, ROOT) for p in _build.sources()],
            "ptxas": regs[:48], "flash_fwd_kernels": fwd,
            "flash_bwd_kernels": bwd, "paged_chunk_kernels": chunk,
+           "paged_decode_kernels": decode, "paged_attention_kernels": paged,
            "attention_sass_mma": mma or "cuobjdump not found"}
     emit(out)
     return out
@@ -466,10 +497,13 @@ def bwd_cases(gen) -> dict:
     return main
 
 
-def _decode_case(name, B, H, KV, HD, P, MP, lens, pool_dtype, gen,
-                 iters=50, profiled=False):
-    pa = importlib.import_module(
-        "deepvision_tpu_torch.engine.kernels.paged_attention")
+def _decode_inputs(B, H, KV, HD, P, MP, lens, pool_dtype, gen,
+                   inactive=()):
+    """Inputs of one decode step on the card: each sequence owns MP
+    distinct pages, entries past its live pages are 0 (the trash page), as
+    in the scheduler's block tables; an ``inactive`` slot (len 1) points
+    at the trash page only.  int8 pools are quantized with a scale of
+    3 / 127 and take float rows (the wrapper quantizes them)."""
     from deepvision_tpu_torch.engine.kv_cache import quantize_rows
 
     dev = torch.device("cuda")
@@ -486,149 +520,163 @@ def _decode_case(name, B, H, KV, HD, P, MP, lens, pool_dtype, gen,
         kp, vp = quantize_rows(kf, ks, 0), quantize_rows(vf, vs, 0)
     else:
         kp, vp = kf.to(pool_dtype), vf.to(pool_dtype)
-    # each sequence owns MP distinct pages; a len-1 slot is an inactive
-    # scheduler slot: block table all zeros (trash page)
-    bt = (1 + torch.randperm(B * MP, generator=gen, device=dev)
-          ).reshape(B, MP).to(torch.int32)
-    for i, n in enumerate(lens):
-        if n == 1:
-            bt[i] = 0
-    seq = torch.tensor(lens, dtype=torch.int32, device=dev)
-    kp1, vp1 = kp.clone(), vp.clone()
-    kp2, vp2 = kp.clone(), vp.clone()
-    got, _, _ = pa.paged_attention_update(q, nk, nv, kp1, vp1, bt, seq,
-                                          k_scale=ks, v_scale=vs)
-    want, _, _ = pa.paged_attention_update_reference(
-        q, nk, nv, kp2, vp2, bt, seq, k_scale=ks, v_scale=vs)
-    torch.cuda.synchronize()
-    err = (got.float() - want.float()).abs().max().item()
-    active = [i for i, n in enumerate(lens) if n > 1]
-    if active:
-        err_active = (got[active].float() - want[active].float()).abs().max().item()
-    else:
-        err_active = 0.0
-    tol = 2e-2
-    if not err_active <= tol or not torch.isfinite(got).all():
-        raise AssertionError(f"decode {name}: max_abs_err {err_active} > {tol}")
-    for a, b_ in ((kp1, kp2), (vp1, vp2)):
-        if not torch.equal(a[:, 1:], b_[:, 1:]):
-            raise AssertionError(f"decode {name}: pools differ outside page 0")
-    ms = cuda_ms(lambda: pa.paged_attention_update(
-        q, nk, nv, kp1, vp1, bt, seq, k_scale=ks, v_scale=vs), iters)
-    plain_ms = cuda_ms(lambda: pa.paged_attention_update_reference(
-        q, nk, nv, kp2, vp2, bt, seq, k_scale=ks, v_scale=vs),
-        max(2, iters // 10))
-    dev_ms = device_ms(lambda: pa.paged_attention_update(
-        q, nk, nv, kp1, vp1, bt, seq, k_scale=ks, v_scale=vs),
-        iters) if profiled else None
-    itemsize = kp.element_size()
-    live = sum(lens)
-    nbytes = (2 * q.numel() * 2 + 2 * nk.numel() * itemsize
-              + 2 * live * KV * HD * itemsize + bt.numel() * 4 + 4 * B)
-    flops = 4.0 * H * HD * live
-    bound_ms, bound_by = bound(nbytes, flops, H100_BF16_FLOP_S)
-    out = {"case": name, "shape": [B, H, KV, HD, P, MP], "seq_lens": lens,
-           "pool_dtype": str(pool_dtype).split(".")[-1],
-           "max_abs_err": err_active, "tol": tol, "ms": ms,
-           "device_ms": dev_ms,
-           "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms,
-           "bound_by": bound_by, "gflop": flops / 1e9, "mbytes": nbytes / 1e6}
-    emit({"phase": "kernels", "kernel": "paged_decode_update", **out})
-    return out
-
-
-def _paged_case(name, write, B, H, KV, HD, P, MP, lens, pool_dtype, gen,
-                iters=50, inactive_trash=True, profiled=False):
-    """``paged_attention`` (#6, ``write=False``) or
-    ``paged_attention_update(grid_mode="bkv")`` (#7, ``write=True``)
-    against its plain version on the same inputs; #7 also against the
-    grid-"b" kernel (#1) on a copy of the same pools.  With
-    ``inactive_trash`` a len-1 slot is an inactive scheduler slot (block
-    table all trash page 0, output not compared for #7); without it every
-    slot owns real pages (the write-position cases)."""
-    pa = importlib.import_module(
-        "deepvision_tpu_torch.engine.kernels.paged_attention")
-    from deepvision_tpu_torch.engine.kv_cache import quantize_rows
-
-    dev = torch.device("cuda")
-    N = B * MP + 1
-    q = torch.randn(B, H, HD, generator=gen, device=dev).to(torch.bfloat16)
-    nk = torch.randn(B, KV, HD, generator=gen, device=dev).to(torch.bfloat16)
-    nv = torch.randn(B, KV, HD, generator=gen, device=dev).to(torch.bfloat16)
-    kf = torch.randn(KV, N, P, HD, generator=gen, device=dev)
-    vf = torch.randn(KV, N, P, HD, generator=gen, device=dev)
-    ks = vs = None
-    if pool_dtype == torch.int8:
-        ks = torch.full((KV,), 3.0 / 127, device=dev)
-        vs = torch.full((KV,), 3.0 / 127, device=dev)
-        kp, vp = quantize_rows(kf, ks, 0), quantize_rows(vf, vs, 0)
-    else:
-        kp, vp = kf.to(pool_dtype), vf.to(pool_dtype)
-    # each sequence owns MP distinct pages; entries past its live pages
-    # are 0 (the trash page), as in the scheduler's block tables
     bt = (1 + torch.randperm(B * MP, generator=gen, device=dev)
           ).reshape(B, MP).to(torch.int32)
     for i, n in enumerate(lens):
         bt[i, -(-n // P):] = 0
-        if inactive_trash and n == 1:
+        if i in inactive:
             bt[i] = 0
     seq = torch.tensor(lens, dtype=torch.int32, device=dev)
-    compared = [i for i, n in enumerate(lens)
-                if not (write and inactive_trash and n == 1)]
-    # bf16 outputs: both sides round one fp32 value (1 bf16 ulp of an O(1)
-    # output is 2^-8) after summing in another order
-    tol = 2e-2
-    out = {"case": name, "shape": [B, H, KV, HD, P, MP], "seq_lens": lens,
-           "pool_dtype": str(pool_dtype).split(".")[-1], "tol": tol}
-    if write:
-        kp1, vp1 = kp.clone(), vp.clone()
-        kp2, vp2 = kp.clone(), vp.clone()
-        kp3, vp3 = kp.clone(), vp.clone()
-        got, _, _ = pa.paged_attention_update(
-            q, nk, nv, kp1, vp1, bt, seq, k_scale=ks, v_scale=vs,
-            grid_mode="bkv")
-        want, _, _ = pa.paged_attention_update_reference(
-            q, nk, nv, kp2, vp2, bt, seq, k_scale=ks, v_scale=vs)
-        fused_b, _, _ = pa.paged_attention_update(
-            q, nk, nv, kp3, vp3, bt, seq, k_scale=ks, v_scale=vs)
+    return dict(q=q, nk=nk, nv=nv, kp=kp, vp=vp, ks=ks, vs=vs, bt=bt,
+                seq=seq, lens=list(lens), inactive=tuple(inactive), P=P)
+
+
+def _poison_rows(inp):
+    """Fill each active sequence's destination row in the pools before the
+    step: NaN in bf16 pools; in int8 pools a K row of +-127 with the signs
+    of the kv head's summed q (its score dwarfs every other column's) and
+    a V row of 127.  A block that read the row from the pool instead of
+    new_k / new_v would miss the plain version, which writes first."""
+    q, kp, vp, bt, P = inp["q"], inp["kp"], inp["vp"], inp["bt"], inp["P"]
+    KV = kp.shape[0]
+    for i, n in enumerate(inp["lens"]):
+        if i in inp["inactive"]:
+            continue
+        dst, off = int(bt[i, (n - 1) // P]), (n - 1) % P
+        if kp.dtype == torch.int8:
+            sign = q[i].float().reshape(KV, -1, q.shape[-1]).sum(1)
+            kp[:, dst, off] = torch.where(sign < 0, -127, 127).to(torch.int8)
+            vp[:, dst, off] = 127
+        else:
+            kp[:, dst, off] = float("nan")
+            vp[:, dst, off] = float("nan")
+
+
+def _decode_fns(kind, inp):
+    """``(kernel(splits), plain())`` of one decode entry point on fresh
+    copies of the pools: ``decode`` is #1 (``paged_attention_update``,
+    grid "b"), ``bkv`` #7 (grid "bkv"), ``paged`` #6 (read-only).  Each
+    returns ``(out, k_pages, v_pages)``."""
+    pa = importlib.import_module(
+        "deepvision_tpu_torch.engine.kernels.paged_attention")
+    g = {k: inp[k] for k in ("q", "nk", "nv", "bt", "seq")}
+    sc = dict(k_scale=inp["ks"], v_scale=inp["vs"])
+    kp1, vp1 = inp["kp"].clone(), inp["vp"].clone()
+    kp2, vp2 = inp["kp"].clone(), inp["vp"].clone()
+    if kind == "paged":
+        def kern(splits=None):
+            return (pa.paged_attention(g["q"], kp1, vp1, g["bt"], g["seq"],
+                                       splits=splits, **sc), kp1, vp1)
+
+        def plain():
+            return (pa.paged_attention_reference(
+                g["q"], kp2, vp2, g["bt"], g["seq"], inp["ks"], inp["vs"]),
+                kp2, vp2)
+        return kern, plain
+
+    def kern(splits=None):
+        return pa.paged_attention_update(
+            g["q"], g["nk"], g["nv"], kp1, vp1, g["bt"], g["seq"],
+            grid_mode="b" if kind == "decode" else "bkv", splits=splits,
+            **sc)
+
+    def plain():
+        return pa.paged_attention_update_reference(
+            g["q"], g["nk"], g["nv"], kp2, vp2, g["bt"], g["seq"], **sc)
+    return kern, plain
+
+
+def _split_check(kind, inp, splits_list, tol=2e-2):
+    """The kernel of ``kind`` at each split count against its plain
+    version on the same inputs, the write's destination rows poisoned
+    (#1, #7): outputs of the compared rows within ``tol`` and finite, the
+    pools equal outside trash page 0.  Returns the worst error by split
+    count."""
+    if kind != "paged":
+        inp = dict(inp, kp=inp["kp"].clone(), vp=inp["vp"].clone())
+        _poison_rows(inp)
+    compared = [i for i in range(len(inp["lens"]))
+                if kind == "paged" or i not in inp["inactive"]]
+    errs = {}
+    for splits in splits_list:
+        kern, plain = _decode_fns(kind, inp)
+        got, gkp, gvp = kern(splits)
+        want, wkp, wvp = plain()
         torch.cuda.synchronize()
-        err_b = (got[compared].float()
-                 - fused_b[compared].float()).abs().max().item()
-        if not err_b <= tol:
-            raise AssertionError(f"paged_update_bkv {name}: against the "
-                                 f"grid-b kernel {err_b} > {tol}")
-        for a, b_, c_ in ((kp1, kp2, kp3), (vp1, vp2, vp3)):
-            if not (torch.equal(a[:, 1:], b_[:, 1:])
-                    and torch.equal(a[:, 1:], c_[:, 1:])):
-                raise AssertionError(f"paged_update_bkv {name}: pools "
-                                     f"differ outside page 0")
-        out["max_abs_err_vs_grid_b"] = err_b
-        kern = lambda: pa.paged_attention_update(  # noqa: E731
-            q, nk, nv, kp1, vp1, bt, seq, k_scale=ks, v_scale=vs,
-            grid_mode="bkv")
-        plain = lambda: pa.paged_attention_update_reference(  # noqa: E731
-            q, nk, nv, kp2, vp2, bt, seq, k_scale=ks, v_scale=vs)
-    else:
-        got = pa.paged_attention(q, kp, vp, bt, seq, k_scale=ks, v_scale=vs)
-        want = pa.paged_attention_reference(q, kp, vp, bt, seq, k_scale=ks,
-                                            v_scale=vs)
-        kern = lambda: pa.paged_attention(  # noqa: E731
-            q, kp, vp, bt, seq, k_scale=ks, v_scale=vs)
-        plain = lambda: pa.paged_attention_reference(  # noqa: E731
-            q, kp, vp, bt, seq, k_scale=ks, v_scale=vs)
-    torch.cuda.synchronize()
-    err = (got[compared].float() - want[compared].float()).abs().max().item()
-    if not err <= tol or not torch.isfinite(got).all():
-        raise AssertionError(f"{'paged_update_bkv' if write else 'paged'} "
-                             f"{name}: max_abs_err {err} > {tol}")
-    ms = cuda_ms(kern, iters)
-    plain_ms = cuda_ms(plain, max(2, iters // 10))
-    out["device_ms"] = device_ms(kern, iters) if profiled else None
-    library_ms = None
-    if not write:
+        err = (got[compared].float() - want[compared].float()).abs().max()
+        errs[splits] = err.item()
+        if not errs[splits] <= tol or not torch.isfinite(got[compared]).all():
+            raise AssertionError(f"{kind} splits {splits} lens {inp['lens']}"
+                                 f": max_abs_err {errs[splits]} > {tol}")
+        for a, b_ in ((gkp, wkp), (gvp, wvp)):
+            if not torch.equal(a[:, 1:], b_[:, 1:]):
+                raise AssertionError(f"{kind} splits {splits}: pools differ "
+                                     f"outside page 0")
+    return errs
+
+
+_KIND_NAMES = {"decode": "paged_decode_update", "bkv": "paged_update_bkv",
+               "paged": "paged_attention"}
+
+
+def _decode_case(name, kind, B, H, KV, HD, P, MP, lens, pool_dtype, gen,
+                 iters=50, profiled=False, inactive=None, active_hint=False):
+    """One entry point (``kind``, as :func:`_decode_fns`) against its plain
+    version with the wrapper's column split and without one, the write's
+    destination rows poisoned; timed from CUDA graphs (``ms``, and
+    ``ms_one_split`` with splits forced to 1), from the host
+    (``events_ms``) and, ``profiled``, by the profiler's device time; #7
+    also against #1 on the same inputs; #6 beside SDPA on K/V gathered
+    dense.  A len-1 slot is inactive (trash page only, output not compared
+    for the writes) unless ``inactive`` names the slots.  With
+    ``active_hint`` the split count is the engine runner's, from the slots
+    that decode, and the wrapper's own (from B) is timed beside it."""
+    pa = importlib.import_module(
+        "deepvision_tpu_torch.engine.kernels.paged_attention")
+    dev = torch.device("cuda")
+    if inactive is None:
+        inactive = tuple(i for i, n in enumerate(lens) if n == 1)
+    inp = _decode_inputs(B, H, KV, HD, P, MP, lens, pool_dtype, gen,
+                         inactive)
+    splits = pa.decode_splits(
+        B - len(inactive) if active_hint else B, KV, MP, dev)
+    tol = 2e-2  # bf16 outputs: one ulp of an O(1) value, summing order
+    errs = _split_check(kind, inp, sorted({splits, 1}), tol)
+    out = {"case": name, "shape": [B, H, KV, HD, P, MP], "seq_lens": lens,
+           "pool_dtype": str(pool_dtype).split(".")[-1],
+           "max_abs_err": max(errs.values()), "max_abs_err_by_splits": errs,
+           "splits": splits, "tol": tol}
+    if kind == "bkv":  # the same function as #1 on the same inputs
+        k7, _ = _decode_fns("bkv", inp)
+        k1, _ = _decode_fns("decode", inp)
+        compared = [i for i in range(B) if i not in inactive]
+        out["max_abs_err_vs_grid_b"] = (
+            k7()[0][compared].float() - k1()[0][compared].float()
+        ).abs().max().item()
+        if not out["max_abs_err_vs_grid_b"] <= tol:
+            raise AssertionError(f"bkv {name}: against the grid-b kernel "
+                                 f"{out['max_abs_err_vs_grid_b']} > {tol}")
+    kern_b, plain = _decode_fns(kind, inp)
+    kern = lambda: kern_b(splits)  # noqa: E731
+    out["ms"] = graph_ms(kern, iters)
+    out["ms_one_split"] = graph_ms(lambda: kern_b(1), iters)
+    if active_hint:  # the wrapper's own choice, from B
+        out["splits_from_b"] = pa.decode_splits(B, KV, MP, dev)
+        out["ms_splits_from_b"] = graph_ms(kern_b, iters)
+    out["events_ms"] = cuda_ms(kern, iters)
+    out["plain_ms"] = cuda_ms(plain, max(2, iters // 10))
+    out["device_ms"] = out["device_by_kernel"] = None
+    if profiled:  # the split kernel and the merge apart
+        out["device_ms"], out["device_by_kernel"] = device_ms(
+            kern, iters, by_kernel=True)
+    out["device_ms_one_split"] = (device_ms(lambda: kern_b(1), iters)
+                                  if profiled else None)
+    out["library_ms"] = None
+    if kind == "paged":
         # library yardstick: SDPA on K/V already gathered dense (the
         # gather is left out of its time), with a bool length mask
         L = max(lens)
+        bt, seq = inp["bt"], inp["seq"]
 
         def dense(pool, scale):
             x = pool.float() * (scale[:, None, None, None]
@@ -637,65 +685,112 @@ def _paged_case(name, write, B, H, KV, HD, P, MP, lens, pool_dtype, gen,
                     .reshape(B, KV, MP * P, HD)[:, :, :L]
                     .to(torch.bfloat16).contiguous())
 
-        kd, vd = dense(kp, ks), dense(vp, vs)
+        kd, vd = dense(inp["kp"], inp["ks"]), dense(inp["vp"], inp["vs"])
         mask = (torch.arange(L, device=dev)[None, :]
                 < seq.long()[:, None])[:, None, None, :]
-        q4 = q[:, :, None, :]
+        q4 = inp["q"][:, :, None, :]
         sdpa = torch.nn.functional.scaled_dot_product_attention
-        library_ms = cuda_ms(
+        out["library_ms"] = graph_ms(
             lambda: sdpa(q4, kd, vd, attn_mask=mask, enable_gqa=True), iters)
-    itemsize = kp.element_size()
+    itemsize = inp["kp"].element_size()
     live = sum(lens)
     row = KV * HD * itemsize
-    # q read and out written; the live K/V rows read; for #7 this step's
-    # rows read (part of the live rows) and written once more into the
-    # pools; the live block-table entries, lengths and scales
-    nbytes = (2 * q.numel() * 2 + 2 * live * row
-              + (2 * B * row if write else 0)
+    # q read and out written; the live K/V rows read; for the writes this
+    # step's rows read (in place of one live row each) and written into
+    # the pools; the live block-table entries, lengths and scales
+    nbytes = (2 * inp["q"].numel() * 2 + 2 * live * row
+              + (2 * B * row if kind != "paged" else 0)
               + sum(-(-n // P) for n in lens) * 4 + 4 * B
-              + (8 * KV if ks is not None else 0))
+              + (8 * KV if inp["ks"] is not None else 0))
     flops = 4.0 * H * HD * live
-    bound_ms, bound_by = bound(nbytes, flops, H100_BF16_FLOP_S)
-    out.update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-               library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
-               gflop=flops / 1e9, mbytes=nbytes / 1e6)
-    emit({"phase": "kernels",
-          "kernel": "paged_update_bkv" if write else "paged_attention",
-          **out})
+    out["bound_ms"], out["bound_by"] = bound(nbytes, flops, H100_BF16_FLOP_S)
+    out.update(gflop=flops / 1e9, mbytes=nbytes / 1e6,
+               kernel_info=(pa.paged_decode_kernel_info(HD, pool_dtype,
+                                                        H // KV)
+                            if kind == "decode" else
+                            pa.paged_attention_kernel_info(
+                                HD, pool_dtype, kind == "bkv", P, H // KV)))
+    emit({"phase": "kernels", "kernel": _KIND_NAMES[kind], **out})
     return out
 
 
-def paged_cases(gen) -> dict:
-    """Every case of #6 (``paged_attention``) and #7
-    (``paged_attention_update(grid_mode="bkv")``); returns the main ones,
-    the report lane's shape (B=8, H=6, KV=2, HD=128, P=64, MP=32, every
-    len 1024, bf16 pools)."""
+def decode_cases(gen) -> dict:
+    """#1, #6 and #7: the report lane's shape (B=8, H=6, KV=2, HD=128,
+    P=64, MP=32, every len 1,024) in bf16 (the main cases) and int8 pools,
+    then B=1 and B=32, ragged batches and small head dims; returns the
+    main cases by kernel name."""
     bf16, i8 = torch.bfloat16, torch.int8
     ragged = [2048, 1, 64, 65, 700, 1024, 1500, 33]
     main = {}
-    for write in (False, True):
-        key = "paged_update_bkv" if write else "paged_attention"
-        main[key] = _paged_case("main_b8_len1024", write, 8, 6, 2, 128, 64,
-                                32, [1024] * 8, bf16, gen, profiled=True)
-        _paged_case("b8_ragged", write, 8, 6, 2, 128, 64, 32, ragged, bf16,
-                    gen)
-        _paged_case("b8_ragged_int8", write, 8, 6, 2, 128, 64, 32, ragged, i8,
-                    gen)
-        _paged_case("hd32", write, 4, 4, 2, 32, 16, 8, [128, 1, 17, 100],
-                    bf16, gen, iters=20)
-        _paged_case("hd256_g8", write, 2, 8, 1, 256, 64, 4, [256, 130], bf16,
-                    gen, iters=20)
-        _paged_case("hd256_g8_int8", write, 2, 8, 1, 256, 64, 4, [256, 130],
-                    i8, gen, iters=20)
-        _paged_case("hd64", write, 2, 8, 2, 64, 16, 8, [100, 37], bf16, gen,
-                    iters=20)
-    # the written row at len 1, as the first row of a fresh page
-    # (len % P == 1) and as the last row of a page (len % P == 0)
-    for pool in (bf16, i8):
-        _paged_case(f"write_rows_{str(pool).split('.')[-1]}", True, 4, 6, 2,
-                    128, 64, 32, [1, 65, 128, 2048], pool, gen, iters=20,
-                    inactive_trash=False)
+    for kind in ("decode", "paged", "bkv"):
+        main[_KIND_NAMES[kind]] = _decode_case(
+            "main_b8_len1024", kind, 8, 6, 2, 128, 64, 32, [1024] * 8, bf16,
+            gen, profiled=True)
+        _decode_case("main_b8_len1024_int8", kind, 8, 6, 2, 128, 64, 32,
+                     [1024] * 8, i8, gen, profiled=True)
+        _decode_case("b1_len1024", kind, 1, 6, 2, 128, 64, 32, [1024], bf16,
+                     gen, profiled=True)
+        _decode_case("b32_len1024", kind, 32, 6, 2, 128, 64, 32, [1024] * 32,
+                     bf16, gen, profiled=True)
+        # the gateway's 32 slots with two requests decoding
+        _decode_case("b32_2active", kind, 32, 6, 2, 128, 64, 32,
+                     [1024, 700] + [1] * 30, bf16, gen, profiled=True,
+                     active_hint=True)
+        _decode_case("b8_ragged", kind, 8, 6, 2, 128, 64, 32, ragged, bf16,
+                     gen)
+        _decode_case("b8_ragged_int8", kind, 8, 6, 2, 128, 64, 32, ragged, i8,
+                     gen)
+        _decode_case("hd32", kind, 4, 4, 2, 32, 16, 8, [128, 1, 17, 100],
+                     bf16, gen, iters=20)
+        _decode_case("hd256_g8", kind, 2, 8, 1, 256, 64, 4, [256, 130], bf16,
+                     gen, iters=20)
+        _decode_case("hd256_g8_int8", kind, 2, 8, 1, 256, 64, 4, [256, 130],
+                     i8, gen, iters=20)
+        _decode_case("hd64", kind, 2, 8, 2, 64, 16, 8, [100, 37], bf16, gen,
+                     iters=20)
+    # the split count against time at the report shape and at 32 slots,
+    # every len 1,024 (what decode_splits chooses from)
+    for kind in ("decode", "paged"):
+        for B in (8, 32):
+            inp = _decode_inputs(B, 6, 2, 128, 64, 32, [1024] * B, bf16, gen)
+            kern, _ = _decode_fns(kind, inp)
+            emit({"phase": "kernels", "kernel": "decode_split_sweep",
+                  "entry": _KIND_NAMES[kind], "B": B,
+                  "ms_by_splits": {sp: graph_ms(lambda: kern(sp), 50)
+                                   for sp in (1, 2, 4, 8, 16, 32)}})
     return main
+
+
+def split_cases(gen) -> dict:
+    """The column split's edges for #1, #6 and #7, each against its plain
+    version within 2e-2 with the pools equal outside page 0 and the
+    write's destination rows poisoned: lengths 1 (on a real page), P, P+1
+    and P*MP beside an inactive slot on the trash page at every split
+    count from 1 to more splits than pages; GQA groups 1/2/3/8 at head
+    dims 32/64/128/256 at the wrapper's split count, 1 and 3.  Emits and
+    returns the number of checks and the worst error by kernel."""
+    t0 = time.monotonic()
+    P, MP = 16, 8
+    worst, checks = {}, 0
+    for pool in (torch.bfloat16, torch.int8):
+        for kind in ("decode", "bkv", "paged"):
+            inp = _decode_inputs(5, 6, 2, 128, P, MP, [1, P, P + 1, P * MP, 1],
+                                 pool, gen, inactive=(4,))
+            errs = _split_check(kind, inp, range(1, MP + 3))
+            for H, KV, HD in ((2, 2, 32), (4, 2, 64), (6, 2, 128),
+                              (8, 1, 256), (8, 1, 32), (3, 3, 256)):
+                inp = _decode_inputs(4, H, KV, HD, P, MP, [1, 37, 100, P * MP],
+                                     pool, gen, inactive=(0,))
+                errs.update({f"g{H // KV}_hd{HD}_s{k}": v for k, v in
+                             _split_check(kind, inp, (None, 1, 3)).items()})
+            name = _KIND_NAMES[kind]
+            worst[name] = max(worst.get(name, 0.0), max(errs.values()))
+            checks += len(errs)
+    out = {"phase": "kernels", "kernel": "decode_split_edges",
+           "checks": checks, "worst_abs_err": worst, "tol": 2e-2,
+           "seconds": time.monotonic() - t0}
+    emit(out)
+    return out
 
 
 def _chunk_case(name, B, C, H, KV, HD, P, MP, starts, ends, pool_dtype, gen,
@@ -861,23 +956,12 @@ def phase_kernels() -> dict:
         _flash_case("s1001_g1", 2, 4, 4, 1001, 128, [1001, 777], bf16, gen),
         _flash_case("hd64_g8", 2, 8, 1, 256, 64, [256, 77], bf16, gen),
     ]
-    ragged = [2048, 1, 64, 65, 700, 1024, 1500, 33]
-    decode = [
-        _decode_case("main_b8_len1024", 8, 6, 2, 128, 64, 32, [1024] * 8,
-                     bf16, gen, profiled=True),
-        _decode_case("b8_ragged", 8, 6, 2, 128, 64, 32, ragged, bf16, gen),
-        _decode_case("b8_ragged_int8", 8, 6, 2, 128, 64, 32, ragged,
-                     torch.int8, gen),
-        _decode_case("hd32", 4, 4, 2, 32, 16, 8, [128, 1, 17, 100], bf16,
-                     gen),
-        _decode_case("hd256", 2, 8, 1, 256, 64, 4, [256, 130], bf16, gen),
-    ]
+    decode = decode_cases(gen)
+    split_cases(gen)
     chunk = chunk_cases(gen)
     bwd = bwd_cases(gen)
-    paged = paged_cases(gen)
     emit({"phase": "kernels_done", "seconds": time.monotonic() - t0})
-    return {"flash_fwd": flash[0], "paged_decode_update": decode[0],
-            "paged_chunk": chunk, **bwd, **paged}
+    return {"flash_fwd": flash[0], "paged_chunk": chunk, **bwd, **decode}
 
 
 def _report_prompts(tokenizer, targets):
@@ -1799,9 +1883,12 @@ def main() -> int:
          "library_ms": main_cases[name]["library_ms"],
          "tflops": main_cases[name]["gflop"] / main_cases[name]["ms"],
          # the same from the host, and the profiler's kernel time, where
-         # the case has them
+         # the case has them; the column split and the kernel unsplit
          "events_ms": main_cases[name].get("events_ms"),
-         "device_ms": main_cases[name].get("device_ms")}
+         "device_ms": main_cases[name].get("device_ms"),
+         "splits": main_cases[name].get("splits"),
+         "ms_one_split": main_cases[name].get("ms_one_split"),
+         "device_ms_one_split": main_cases[name].get("device_ms_one_split")}
         for name in KERNELS]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["name"],
                                  "count": dev["count"]}})

@@ -55,15 +55,20 @@ _SIGNATURES = {
     # dq (1) or dk/dv (0), HD, dtype, out int[5]
     "dv_flash_bwd_info": [_I, _I, _I, _P],
     # q, new_k, new_v, k_pages, v_pages, block_tables, seq_lens, k_scale,
-    # v_scale, out, B, H, KV, N, P, MP, HD, q_dtype, pool_dtype, scale,
-    # stream
-    "dv_paged_decode_update": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                               _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    # v_scale, out, part (or null), B, H, KV, N, P, MP, HD, q_dtype,
+    # pool_dtype, nsplit, scale, stream
+    "dv_paged_decode_update": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                               _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
+                               _P],
+    # HD, pool_dtype, G, out int[5]
+    "dv_paged_decode_info": [_I, _I, _I, _P],
     # q, new_k (or null), new_v (or null), k_pages, v_pages, block_tables,
-    # seq_lens, k_scale, v_scale, out, B, H, KV, N, P, MP, HD, pool_dtype,
-    # write, scale, stream
-    "dv_paged_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                           _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    # seq_lens, k_scale, v_scale, out, part (or null), B, H, KV, N, P, MP,
+    # HD, pool_dtype, write, nsplit, scale, stream
+    "dv_paged_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                           _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    # HD, pool_dtype, write, P, G, out int[5]
+    "dv_paged_attention_info": [_I, _I, _I, _I, _I, _P],
     # q, k_pages, v_pages, block_tables, chunk_starts, seq_lens, k_scale,
     # v_scale, out, part_acc (or null), part_ml (or null), B, C, H, KV, N,
     # P, MP, HD, q_dtype, pool_dtype, nsplit, scale, stream
@@ -171,8 +176,8 @@ def build_info() -> dict:
 
 def kernel_info(fn_name: str, *args) -> dict:
     """How the card runs one kernel, from the library's ``*_info`` export
-    ``fn_name(*args, out)``: registers a thread, dynamic shared memory and
-    local (spill) bytes, blocks an SM and threads a block."""
+    ``fn_name(*args, out)``: registers a thread, shared memory (static and
+    dynamic) and local (spill) bytes, blocks an SM and threads a block."""
     vals = (ctypes.c_int * 5)()
     rc = getattr(library(), fn_name)(*args, ctypes.cast(vals,
                                                          ctypes.c_void_p))

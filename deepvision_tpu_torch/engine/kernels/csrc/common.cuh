@@ -44,3 +44,24 @@ inline cudaError_t dv_allow_smem(Kernel kernel, int bytes) {
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               bytes);
 }
+
+// Registers, shared memory (static and dynamic), local (spill) bytes,
+// blocks an SM and threads of one kernel, as the card will run it:
+// out[0..4].
+template <typename Kernel>
+inline int dv_kernel_info(Kernel kernel, int threads, int bytes, int* out) {
+  cudaError_t err = dv_allow_smem(kernel, bytes);
+  cudaFuncAttributes attr;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                        threads, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = attr.numRegs;
+  out[1] = bytes + static_cast<int>(attr.sharedSizeBytes);
+  out[2] = static_cast<int>(attr.localSizeBytes);
+  out[3] = blocks;
+  out[4] = threads;
+  return 0;
+}

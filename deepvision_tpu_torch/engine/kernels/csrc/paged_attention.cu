@@ -17,45 +17,51 @@
 //   out[b, kv*G+g] = softmax_c(q . k_c * HD^-0.5 * k_scale) @ v_c * v_scale
 //   over the kv head's G query heads and columns c < len; len 0 gives 0.
 //
-// Design: one block of 128 threads per (kv head, sequence), as both TPU
-// grids have.  The block streams the sequence's live pages through shared
-// memory with cp.async double buffering: one page of K and one of V per
-// stage (2 x P x HD x itemsize; 32 KB at P=64, HD=128 in bf16, so two
-// stages take 64 KB, 128 KB at HD=256), sized from P, HD and the pool
-// dtype at launch; only the rows < len of the last page are copied.  Each
-// page takes three steps between barriers:
+// Design: 128 threads a block on a grid of (nsplit, KV, B) blocks.  The
+// column split, the rule for the written row, the partial layout and the
+// merge kernel are decode_split.cuh's, shared with paged_decode.cu (#1):
+// block `split` takes a range of whole pages of its (kv head, sequence),
+// and with nsplit > 1 a second kernel merges the ranges' fp32 states.
+// The block streams its range's pages through shared memory with cp.async
+// double buffering: one page of K and one of V per stage (2 x P x HD x
+// itemsize; 32 KB at P=64, HD=128 in bf16, so two stages take 64 KB,
+// 128 KB at HD=256), sized from P, HD and the pool dtype at launch; only
+// the rows < len of the last page are copied.  Three blocks fit an SM at
+// HD 128 in bf16 (shared memory), so the split's 256 blocks at the report
+// lane's shape are all resident at once.  Each page takes three steps
+// between barriers:
 //   1. scores: an item is one column's 32 channels for all G heads, so a
 //      column is HD/32 items; neighbouring threads take neighbouring
 //      columns, reading 16-byte pieces of K rows padded by 16 bytes (no
 //      bank conflicts) and the same q (kept in shared memory as float, the
 //      K scale folded in: a broadcast); no shuffles;
 //   2. softmax: one warp per head sums the items, updates the running max
-//      and sum, and leaves p in a [G, P] fp32 tile;
+//      and sum (fp32, expf), and leaves p in a [G, P] fp32 tile;
 //   3. P @ V: each thread owns one channel pair of every head and a
 //      contiguous group of columns (256/HD groups), four columns at a time
 //      (p as float4); the groups' partial sums merge at the end.
 // The V scale folds into the final normalize, as in the TPU kernels;
-// l == 0 gives l = 1.
+// l == 0 gives l = 1 (len 0: every range empty, the row is 0).
 //
-// The write (WRITE=true): the block stores its kv head's new row into the
-// pool, and when it stages the page that holds that row it takes the row
-// from new_k/new_v instead of copying it back from the pool, so no block
-// ever reads what it has just written (a cp.async read of a row written
-// by the same block a moment earlier would need an ordering argument;
-// this needs none).  Inactive scheduler slots all point at trash page 0
+// The write (WRITE=true): only the block whose range holds column len - 1
+// stores its kv head's new row into the pool, and when it stages the page
+// that holds that row it takes the row from new_k/new_v instead of
+// copying it back from the pool, so no block ever reads what a block of
+// the launch writes.  Inactive scheduler slots all point at trash page 0
 // and race on its row 0, as in the TPU kernel; their outputs are
 // discarded.
 //
 // Bound on this card: HBM bytes.  At the report lane's shape (B=8, H=6,
 // KV=2, HD=128, P=64, len 1024, bf16 pools) the live K/V rows are 8.39 MB,
-// 2.5 us at 3.35 TB/s; the math is ~1 flop per byte.  The grid has only
-// B x KV = 16 blocks there: 116 SMs idle, and on each busy SM four warps
-// cannot hide the latency of a page's three phases (measured ~4 us a
-// page; a third cp.async stage changed it by 7 %), so latency, not the
-// bytes, bounds this design.  Left for later: splitting the columns over
-// more blocks (split-K with a merge pass) and TMA page copies.
+// 2.5 us at 3.35 TB/s; the math is ~3 flops a byte.  Unsplit, the grid
+// is B x KV = 16 blocks there, and four warps a busy SM cannot hide a
+// page's three phases (~4 us a page on an NVIDIA H100 80GB HBM3 at 700 W;
+// a third cp.async stage changed it by 7 %): latency, not the bytes,
+// bounds it.  The split gives each block one page there: 8.1 us for this
+// kernel and 2.2 us for the merge on that card, against 62 us unsplit
+// (chip_smoke.py's decode cases).  Left for later: TMA page copies.
 
-#include "common.cuh"
+#include "decode_split.cuh"
 
 namespace {
 
@@ -72,36 +78,6 @@ struct Shape {
   static constexpr int SPLITS = HD / CHUNK; // score items per column
   static constexpr int PAIRS = HD / 2;      // P@V: a thread owns a pair
   static constexpr int CG = NT / PAIRS;     // P@V: column groups (256 / HD)
-};
-
-template <typename PT>
-struct Unpack;
-template <>
-struct Unpack<__nv_bfloat16> {
-  __device__ static __forceinline__ void run(const uint4& u, float* f) {
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 t = __bfloat1622float2(h[i]);
-      f[2 * i] = t.x;
-      f[2 * i + 1] = t.y;
-    }
-  }
-  __device__ static __forceinline__ float2 pair(const __nv_bfloat16* p) {
-    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-  }
-};
-template <>
-struct Unpack<int8_t> {
-  __device__ static __forceinline__ void run(const uint4& u, float* f) {
-    const int8_t* b = reinterpret_cast<const int8_t*>(&u);
-#pragma unroll
-    for (int i = 0; i < 16; ++i) f[i] = static_cast<float>(b[i]);
-  }
-  __device__ static __forceinline__ float2 pair(const int8_t* p) {
-    const char2 c = *reinterpret_cast<const char2*>(p);
-    return make_float2(static_cast<float>(c.x), static_cast<float>(c.y));
-  }
 };
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
@@ -137,29 +113,44 @@ paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
                        const int* __restrict__ seq_lens,
                        const float* __restrict__ k_scale,
                        const float* __restrict__ v_scale,
-                       __nv_bfloat16* __restrict__ out, int H, int KV, int N,
-                       int P, int MP, float scale) {
+                       __nv_bfloat16* __restrict__ out,
+                       float* __restrict__ part, int H, int KV, int N, int P,
+                       int MP, int nsplit, float scale) {
   using S = Shape<PT, HD>;
   extern __shared__ __align__(16) unsigned char smem[];
 
-  const int kv = blockIdx.x, b = blockIdx.y;
+  const int split = blockIdx.x, kv = blockIdx.y, b = blockIdx.z;
   const int G = H / KV;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int PP = (P + 3) & ~3;  // score row stride, a multiple of 4
   const int* bt = block_tables + static_cast<size_t>(b) * MP;
   const int len = seq_lens[b];
   const int n = min(max(len, 0), MP * P);  // columns attended
-  const int npages = (n + P - 1) / P;
+  // this block's pages [p0, p1) of the sequence (decode_split.cuh)
+  const DvColRange r = dv_split_cols(n, P, nsplit, split);
+  const int p0 = r.c0 / P, p1 = r.c0 < r.c1 ? (r.c1 + P - 1) / P : p0;
+  float* part_ml =  // nsplit > 1: after part_acc's rows
+      nsplit > 1 ? part + static_cast<size_t>(gridDim.z) * H * nsplit * HD
+                 : nullptr;
+  if (p0 >= p1 && nsplit > 1) {  // an empty range: m = -inf, l = 0
+    const size_t pr0 = dv_part_row(b, kv, KV, nsplit, split, G, 0);
+    if (tid < G) {
+      part_ml[2 * (pr0 + tid)] = -INFINITY;
+      part_ml[2 * (pr0 + tid) + 1] = 0.f;
+    }
+    return;
+  }
   const size_t row_src = (static_cast<size_t>(b) * KV + kv) * HD;
   const int wpos = len - 1;  // the written row (WRITE only)
-  const bool write = WRITE && wpos >= 0 && wpos < MP * P;
+  // only the block whose range holds the row writes it and stages it
+  const bool write = WRITE && wpos >= r.c0 && wpos < r.c1;
   const int wpage = write ? wpos / P : -1, woff = write ? wpos % P : -1;
 
   PT* kbuf = reinterpret_cast<PT*>(smem);  // [2][P][KS]
   PT* vbuf = kbuf + 2 * P * S::KS;         // [2][PP][HD]
   float* qsm = reinterpret_cast<float*>(vbuf + 2 * PP * HD);  // [G][HD]
-  float* part = qsm + G * HD;  // [SPLITS][G][PP] scores; then p in [0]
-  float* st_m = part + S::SPLITS * G * PP;  // [MAXG] running max
+  float* scores = qsm + G * HD;  // [SPLITS][G][PP] scores; then p in [0]
+  float* st_m = scores + S::SPLITS * G * PP;  // [MAXG] running max
   float* st_l = st_m + MAXG;                // [MAXG] running sum
   float* st_a = st_l + MAXG;                // [MAXG] this page's rescale
   float* red = st_a + MAXG;                 // [CG][G][HD] when CG > 1
@@ -202,7 +193,7 @@ paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
   };
 
   // each head's q in shared memory, the K scale folded in
-  const float qs = scale * k_scale[kv];
+  const float qs = scale * (k_scale ? k_scale[kv] : 1.f);
   for (int i = tid; i < G * HD; i += NT)
     qsm[i] = dv_to_f32(q[(static_cast<size_t>(b) * H + kv * G) * HD + i]) * qs;
 
@@ -217,10 +208,10 @@ paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
   }
   __syncthreads();
 
-  if (npages > 0) stage(0, 0);
-  for (int p = 0; p < npages; ++p) {
-    const int s = p & 1;
-    if (p + 1 < npages) {
+  if (p0 < p1) stage(p0, 0);
+  for (int p = p0; p < p1; ++p) {
+    const int s = (p - p0) & 1;
+    if (p + 1 < p1) {
       stage(p + 1, s ^ 1);
       cp_async_wait<1>();
     } else {
@@ -263,18 +254,19 @@ paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int g = 0; g < MAXG; ++g) {
         if (g >= G) break;
-        part[(sp * G + g) * PP + c] = dot[g];
+        scores[(sp * G + g) * PP + c] = dot[g];
       }
     }
     __syncthreads();
 
-    // 2) online softmax, one warp per head: sum the items, p into part[0]
+    // 2) online softmax, one warp per head: sum the items, p into scores[0]
     for (int g = warp; g < G; g += NW) {
       float mx = DV_NEG_INF;
       for (int c = lane; c < rows; c += 32) {
         float v = 0.f;
-        for (int sp = 0; sp < S::SPLITS; ++sp) v += part[(sp * G + g) * PP + c];
-        part[g * PP + c] = v;
+        for (int sp = 0; sp < S::SPLITS; ++sp)
+          v += scores[(sp * G + g) * PP + c];
+        scores[g * PP + c] = v;
         mx = fmaxf(mx, v);
       }
 #pragma unroll
@@ -284,8 +276,8 @@ paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
       const float m_new = fmaxf(m_old, mx);
       float sum = 0.f;
       for (int c = lane; c < PP; c += 32) {
-        const float e = c < rows ? expf(part[g * PP + c] - m_new) : 0.f;
-        part[g * PP + c] = e;
+        const float e = c < rows ? expf(scores[g * PP + c] - m_new) : 0.f;
+        scores[g * PP + c] = e;
         sum += e;
       }
 #pragma unroll
@@ -314,7 +306,8 @@ paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
       float4 pg[MAXG];
 #pragma unroll
       for (int g = 0; g < MAXG; ++g)
-        if (g < G) pg[g] = *reinterpret_cast<const float4*>(part + g * PP + c);
+        if (g < G)
+          pg[g] = *reinterpret_cast<const float4*>(scores + g * PP + c);
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
         const float2 v = Unpack<PT>::pair(vt + (c + u) * HD + 2 * pr);
@@ -328,7 +321,7 @@ paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
         }
       }
     }
-    __syncthreads();  // the next iteration refills this stage and part
+    __syncthreads();  // the next iteration refills this stage and scores
   }
 
   // merge the column groups' partial sums, normalize, store
@@ -354,8 +347,8 @@ paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
       }
     }
   }
-  if (cg == 0) {
-    const float vs = v_scale[kv];
+  if (cg == 0 && nsplit == 1) {
+    const float vs = v_scale ? v_scale[kv] : 1.f;
 #pragma unroll
     for (int g = 0; g < MAXG; ++g) {
       if (g >= G) break;
@@ -364,72 +357,126 @@ paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
           out + (static_cast<size_t>(b) * H + kv * G + g) * HD + 2 * pr) =
           __floats2bfloat162_rn(acc[g][0] / l * vs, acc[g][1] / l * vs);
     }
+  } else if (cg == 0) {  // this split's unnormalised state for the merge
+#pragma unroll
+    for (int g = 0; g < MAXG; ++g) {
+      if (g >= G) break;
+      const size_t prow = dv_part_row(b, kv, KV, nsplit, split, G, g);
+      *reinterpret_cast<float2*>(part + prow * HD + 2 * pr) =
+          make_float2(acc[g][0], acc[g][1]);
+      if (pr == 0) {
+        part_ml[2 * prow] = st_m[g];
+        part_ml[2 * prow + 1] = st_l[g];
+      }
+    }
   }
 }
 
+struct PagedArgs {
+  const void *q, *nk, *nv;
+  void *kp, *vp;
+  const int *bt, *lens;
+  const float *ks, *vs;
+  void* out;
+  float* part;
+  int B, H, KV, N, P, MP, nsplit;
+  float scale;
+  cudaStream_t stream;
+};
+
 template <bool WRITE, typename PT, int HD>
-int launch(const void* q, const void* nk, const void* nv, void* kp, void* vp,
-           const int* bt, const int* lens, const float* ks, const float* vs,
-           void* out, int B, int H, int KV, int N, int P, int MP, float scale,
-           cudaStream_t stream) {
-  const size_t bytes = smem_bytes<PT, HD>(P, H / KV);
+int launch(const PagedArgs& a) {
+  auto kernel = paged_attention_kernel<WRITE, PT, HD>;
+  const size_t bytes = smem_bytes<PT, HD>(a.P, a.H / a.KV);
   if (bytes > 232448) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t attr = dv_allow_smem(
-      paged_attention_kernel<WRITE, PT, HD>, static_cast<int>(bytes));
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  paged_attention_kernel<WRITE, PT, HD><<<dim3(KV, B), NT, bytes, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const PT*>(nk),
-      static_cast<const PT*>(nv), static_cast<PT*>(kp), static_cast<PT*>(vp),
-      bt, lens, ks, vs, static_cast<__nv_bfloat16*>(out), H, KV, N, P, MP,
-      scale);
-  return static_cast<int>(cudaGetLastError());
+  cudaError_t err = dv_allow_smem(kernel, static_cast<int>(bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<dim3(a.nsplit, a.KV, a.B), NT, bytes, a.stream>>>(
+      static_cast<const __nv_bfloat16*>(a.q), static_cast<const PT*>(a.nk),
+      static_cast<const PT*>(a.nv), static_cast<PT*>(a.kp),
+      static_cast<PT*>(a.vp), a.bt, a.lens, a.ks, a.vs,
+      static_cast<__nv_bfloat16*>(a.out), a.part, a.H, a.KV, a.N, a.P, a.MP,
+      a.nsplit, a.scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || a.nsplit == 1) return static_cast<int>(err);
+  return dv_launch_decode_merge<HD>(a.part, a.vs, a.out, a.B, a.H, a.KV,
+                                    a.nsplit, a.stream);
 }
 
 template <bool WRITE, typename PT>
-int dispatch_hd(const void* q, const void* nk, const void* nv, void* kp,
-                void* vp, const int* bt, const int* lens, const float* ks,
-                const float* vs, void* out, int B, int H, int KV, int N, int P,
-                int MP, int HD, float scale, cudaStream_t st) {
+int dispatch_hd(const PagedArgs& a, int HD) {
   switch (HD) {
-    case 32: return launch<WRITE, PT, 32>(q, nk, nv, kp, vp, bt, lens, ks, vs, out, B, H, KV, N, P, MP, scale, st);
-    case 64: return launch<WRITE, PT, 64>(q, nk, nv, kp, vp, bt, lens, ks, vs, out, B, H, KV, N, P, MP, scale, st);
-    case 128: return launch<WRITE, PT, 128>(q, nk, nv, kp, vp, bt, lens, ks, vs, out, B, H, KV, N, P, MP, scale, st);
-    case 256: return launch<WRITE, PT, 256>(q, nk, nv, kp, vp, bt, lens, ks, vs, out, B, H, KV, N, P, MP, scale, st);
+    case 32: return launch<WRITE, PT, 32>(a);
+    case 64: return launch<WRITE, PT, 64>(a);
+    case 128: return launch<WRITE, PT, 128>(a);
+    case 256: return launch<WRITE, PT, 256>(a);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 template <bool WRITE>
-int dispatch_pool(int pool_dtype, const void* q, const void* nk,
-                  const void* nv, void* kp, void* vp, const int* bt,
-                  const int* lens, const float* ks, const float* vs, void* out,
-                  int B, int H, int KV, int N, int P, int MP, int HD,
-                  float scale, cudaStream_t st) {
-  if (pool_dtype == DV_BF16)
-    return dispatch_hd<WRITE, __nv_bfloat16>(q, nk, nv, kp, vp, bt, lens, ks, vs, out, B, H, KV, N, P, MP, HD, scale, st);
-  if (pool_dtype == DV_I8)
-    return dispatch_hd<WRITE, int8_t>(q, nk, nv, kp, vp, bt, lens, ks, vs, out, B, H, KV, N, P, MP, HD, scale, st);
+int dispatch_pool(const PagedArgs& a, int HD, int pool_dtype) {
+  if (pool_dtype == DV_BF16) return dispatch_hd<WRITE, __nv_bfloat16>(a, HD);
+  if (pool_dtype == DV_I8) return dispatch_hd<WRITE, int8_t>(a, HD);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <typename PT, int HD>
+int info(int write, int P, int G, int* out) {
+  const int bytes = static_cast<int>(smem_bytes<PT, HD>(P, G));
+  if (write)
+    return dv_kernel_info(paged_attention_kernel<true, PT, HD>, NT, bytes,
+                          out);
+  return dv_kernel_info(paged_attention_kernel<false, PT, HD>, NT, bytes,
+                        out);
+}
+
+template <typename PT>
+int info_hd(int HD, int write, int P, int G, int* out) {
+  switch (HD) {
+    case 32: return info<PT, 32>(write, P, G, out);
+    case 64: return info<PT, 64>(write, P, G, out);
+    case 128: return info<PT, 128>(write, P, G, out);
+    case 256: return info<PT, 256>(write, P, G, out);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
 
-// new_k/new_v are read only when write != 0 (pass null otherwise).
+// The kernel for HD, pool dtype and write at page size P and group G, as
+// the card runs it (dv_kernel_info's out[0..4]).
+extern "C" int dv_paged_attention_info(int HD, int pool_dtype, int write,
+                                       int P, int G, int* out) {
+  if (P <= 0 || G <= 0 || G > MAXG)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (pool_dtype == DV_BF16)
+    return info_hd<__nv_bfloat16>(HD, write, P, G, out);
+  if (pool_dtype == DV_I8) return info_hd<int8_t>(HD, write, P, G, out);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// new_k/new_v are read only when write != 0 (pass null otherwise); part:
+// B * KV * nsplit * G * (HD + 2) floats of scratch when nsplit > 1 (null
+// otherwise).
 extern "C" int dv_paged_attention(
     const void* q, const void* new_k, const void* new_v, void* k_pages,
     void* v_pages, const void* block_tables, const void* seq_lens,
-    const void* k_scale, const void* v_scale, void* out, int B, int H, int KV,
-    int N, int P, int MP, int HD, int pool_dtype, int write, float scale,
-    void* stream) {
+    const void* k_scale, const void* v_scale, void* out, void* part, int B,
+    int H, int KV, int N, int P, int MP, int HD, int pool_dtype, int write,
+    int nsplit, float scale, void* stream) {
   if (B <= 0 || KV <= 0 || P <= 0 || MP <= 0 || H % KV != 0 ||
-      H / KV > MAXG || (write && (new_k == nullptr || new_v == nullptr)))
+      H / KV > MAXG || (write && (new_k == nullptr || new_v == nullptr)) ||
+      nsplit < 1 || nsplit > DV_MAX_SPLITS ||
+      (nsplit > 1 && part == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int* bt = static_cast<const int*>(block_tables);
-  const int* lens = static_cast<const int*>(seq_lens);
-  const float* ks = static_cast<const float*>(k_scale);
-  const float* vs = static_cast<const float*>(v_scale);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (write)
-    return dispatch_pool<true>(pool_dtype, q, new_k, new_v, k_pages, v_pages, bt, lens, ks, vs, out, B, H, KV, N, P, MP, HD, scale, st);
-  return dispatch_pool<false>(pool_dtype, q, new_k, new_v, k_pages, v_pages, bt, lens, ks, vs, out, B, H, KV, N, P, MP, HD, scale, st);
+  const PagedArgs a{q, new_k, new_v, k_pages, v_pages,
+                    static_cast<const int*>(block_tables),
+                    static_cast<const int*>(seq_lens),
+                    static_cast<const float*>(k_scale),
+                    static_cast<const float*>(v_scale), out,
+                    static_cast<float*>(part), B, H, KV, N, P, MP, nsplit,
+                    scale, static_cast<cudaStream_t>(stream)};
+  return write ? dispatch_pool<true>(a, HD, pool_dtype)
+               : dispatch_pool<false>(a, HD, pool_dtype);
 }

@@ -106,23 +106,3 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src,
                ok ? src + static_cast<size_t>(r) * HD + c * 8 : src, ok);
   }
 }
-
-// Registers, dynamic shared memory, local (spill) bytes, blocks an SM and
-// threads of one kernel, as the card will run it: out[0..4].
-template <typename Kernel>
-inline int dv_kernel_info(Kernel kernel, int threads, int bytes, int* out) {
-  cudaError_t err = dv_allow_smem(kernel, bytes);
-  cudaFuncAttributes attr;
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
-  int blocks = 0;
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
-                                                        threads, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  out[0] = attr.numRegs;
-  out[1] = bytes;
-  out[2] = static_cast<int>(attr.localSizeBytes);
-  out[3] = blocks;
-  out[4] = threads;
-  return 0;
-}

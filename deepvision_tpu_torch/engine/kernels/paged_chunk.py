@@ -11,8 +11,6 @@ the other.
 
 from __future__ import annotations
 
-import functools
-
 import torch
 
 from deepvision_tpu_torch.engine.kernels import _build
@@ -21,6 +19,7 @@ from deepvision_tpu_torch.engine.kernels.paged_attention import (
     MAX_GROUP,
     POOL_DTYPES,
     _scales,
+    _sm_count,
 )
 
 _NEG_INF = -1e30
@@ -118,11 +117,6 @@ paged_chunk_attention.launches = 0
 _ROWS_PER_BLOCK = 64   # csrc/paged_chunk.cu TcChunk::BR
 _BLOCKS_PER_SM = 2     # TcChunk::MIN_BLOCKS
 _MAX_SPLITS = 8
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def chunk_splits(B, C, H, KV, HD, max_cols, device) -> int:

@@ -210,13 +210,15 @@ def forward_prefill_chunk(params, cache, tokens, chunk_starts, seq_lens,
 
 @torch.no_grad()
 def forward_decode(params, cache, tokens, seq_lens, block_tables, *,
-                   cfg: ModelConfig):
+                   cfg: ModelConfig, splits=None):
     """One continuous-batching decode step.
 
     Args:
       tokens: ``[B]`` int32 current tokens.
       seq_lens: ``[B]`` int32 lengths INCLUDING the current token.
       block_tables: ``[B, MAX_PAGES]`` int32.
+      splits: the decode kernel's column splits on the card (None: chosen
+        from B by the kernel's wrapper); the CPU path has no use for it.
 
     Returns ``logits [B, V]`` (float32); each layer's fused kernel writes
     the token's K/V row into the pools in place.
@@ -235,7 +237,8 @@ def forward_decode(params, cache, tokens, seq_lens, block_tables, *,
         ksc, vsc = _kv_scales(cache, i)
         attn, _, _ = paged_attention_update(
             q.contiguous(), k.contiguous(), v.contiguous(), cache["k"][i],
-            cache["v"][i], block_tables, seq_lens, k_scale=ksc, v_scale=vsc)
+            cache["v"][i], block_tables, seq_lens, k_scale=ksc, v_scale=vsc,
+            splits=splits)
         x = x + qdot(attn.reshape(B, -1), blk["wo"],
                      torch.float32).to(x.dtype)
         x = x + _mlp(rms_norm(x, blk["ln2"], cfg.rms_eps), blk)

@@ -31,6 +31,7 @@ import torch
 
 from deepvision_tpu_torch.engine import model as model_lib
 from deepvision_tpu_torch.engine.config import ModelConfig
+from deepvision_tpu_torch.engine.kernels.paged_attention import decode_splits
 from deepvision_tpu_torch.engine.kv_cache import CacheConfig, init_cache
 from deepvision_tpu_torch.engine.sampling import (
     pack_dfa_table,
@@ -301,11 +302,22 @@ class ModelRunner:
         topp = self._tensor(top_p, torch.float32)
         states = self._tensor(dfa_states, torch.int32)
         rem = self._tensor(budgets, torch.int32)
+        # the decode kernel's column split, from the slots that decode: an
+        # idle slot (len 1, trash page) finishes at once on the card, so
+        # the active ones take its share of the SMs; the lengths are host
+        # arrays here, so this reads nothing back
+        splits = None
+        if self.device.type == "cuda":
+            active = max(1, int((np.asarray(seq_lens) > 1).sum()))
+            splits = decode_splits(active, self.cfg.n_kv_heads,
+                                   self.cache_cfg.max_pages_per_seq,
+                                   self.device)
         outs = []
         with torch.no_grad():
             for _ in range(n_steps):
                 logits = model_lib.forward_decode(
-                    self.params, self.cache, toks, lens, bt, cfg=self.cfg)
+                    self.params, self.cache, toks, lens, bt, cfg=self.cfg,
+                    splits=splits)
                 toks, states = sample_tokens_constrained(
                     logits, self._gen, temp, topk, topp, states,
                     self._dfa_packed, budgets=rem)

@@ -254,8 +254,13 @@ CUDA_CASES = [
 @pytest.mark.parametrize("case", CUDA_CASES)
 def test_cuda_backward_kernels_match_plain(case):
     """lse from the forward kernel, dQ and dK/dV kernels against their
-    plain versions on the card (bf16 outputs: 2e-2 absolute on O(1)
-    gradients; f32: 1e-3, summation order over up to 256 columns)."""
+    plain versions on the card.  bf16 outputs: both sides round one fp32
+    value per element to bf16, so they may land one bf16 step apart, and a
+    step is 2^-7 of the magnitude; each gradient is held to 2^-7 x
+    max(|plain|, 1), |plain| its largest magnitude, the bound chip_smoke.py
+    holds the same kernels to (a fixed 2e-2 is less than one step for
+    gradients above 2.56).  f32: 1e-3, summation order over up to 256
+    columns."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     *shape, dtype = case
@@ -268,9 +273,10 @@ def test_cuda_backward_kernels_match_plain(case):
     dk, dv = tfa.flash_bwd_dkv(q, k, v, seq, g, lse, delta)
     wdq = tfa.flash_bwd_dq_reference(q, k, v, seq, g, lse, delta)
     wdk, wdv = tfa.flash_bwd_dkv_reference(q, k, v, seq, g, lse, delta)
-    tol = 2e-2 if dtype == torch.bfloat16 else 1e-3
     for got, want in ((dq, wdq), (dk, wdk), (dv, wdv)):
         assert torch.isfinite(got).all()
+        tol = (2.0 ** -7 * max(want.float().abs().max().item(), 1.0)
+               if dtype == torch.bfloat16 else 1e-3)
         assert (got.float() - want.float()).abs().max().item() <= tol
 
 
