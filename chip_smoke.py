@@ -63,7 +63,27 @@ Phases, each printing one JSON line with its own seconds:
 8. gateway_int8 — the report draft again through a gateway with
    ``ENGINE_KV_QUANTIZE=int8``: it must parse; the calibrated scales and
    the first token that differs from the bf16 run are reported;
-9. train   — dv-base fine-tuning through the port's ``Trainer`` at its
+9. engine_w8 — phase ``engine``'s traffic under three serving settings:
+   fused projections; int8 weights, fused; int8, fused and pipelined (4
+   chained decode calls).  Every output must parse, the int8 block
+   weights must take at most 0.55x the bf16 bytes, and prompt 0 replayed
+   alone must give the same tokens with and without pipelining; the
+   parameter bytes, the decode step, kernel launches a decode step
+   (``torch.profiler``, beside phase ``engine``'s unfused bf16 count, which
+   phase ``engine`` now also reports), the pipelined readback wait and the
+   first token that differs from phase ``engine`` are reported.  It first
+   holds ``qdot``'s int8 form (a bf16 GEMM with a float32 output) against
+   the float32 product on the card;
+10. gateway_w8 — ``build_gateway`` with ``ENGINE_QUANTIZE=int8``,
+   ``ENGINE_FUSE_PROJECTIONS=1`` and ``ENGINE_PIPELINE_DECODE=1``: a
+   question and the report draft must parse, ``embed_texts`` must give
+   None (as in the JAX app);
+11. hf_import — an HF-named state dict of seeded random tensors (2-layer
+   Llama shape, head_dim 128, GQA, untied ``lm_head``) through the
+   importer into ``LLMEngine(quantize="int8")``: 16 greedy tokens, and the
+   kernel-path prefill logits against the plain float32 forward of the
+   same int8 params;
+12. train   — dv-base fine-tuning through the port's ``Trainer`` at its
    full width and depth: float32 params (random, seed 0), bf16
    activations, batch 8 x 2,049 tokens of seeded interview text through
    the dv_bpe_16k tokenizer, ``train_model.py``'s optimizer chain, the
@@ -72,12 +92,12 @@ Phases, each printing one JSON line with its own seconds:
    a step, one step at B=2 must agree with the plain attention through
    autograd (loss and every gradient leaf), and ``save_npz`` ->
    ``load_or_init`` must give back the same bits; one step is profiled;
-10. the card's name and power limit again, then the ``kernels`` line the
+13. the card's name and power limit again, then the ``kernels`` line the
    benchmark contract reads (seven kernels, each with its achieved
    TFLOP/s, whether it computes on the tensor cores or in fp32 on the
    CUDA cores and, for the kernels that split columns, the split count
    and the time unsplit);
-11. shutdown, then the last line ``{"ok": true, "device": {...}}``.
+14. shutdown, then the last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the script exits non-zero without the last
 line.  Without CUDA it exits 2 before any phase.
@@ -1080,6 +1100,7 @@ def phase_engine() -> dict:
         ttft = sorted(m["queue_wait_ms"] + m["prefill_ms"] for _, m in results)
         completion = sum(m["completion_tokens"] for _, m in results)
         stats = eng.stats()
+        decode_profile = _decode_profile(eng)
         out = {
             "phase": "engine", "model": cfg.name, "params": count_params(params),
             "weights": f"random (seed {SEED})", "boot_s": t_boot,
@@ -1096,12 +1117,72 @@ def phase_engine() -> dict:
             "launches": launches, "replay_identical": True,
             "replay_matches_batch": replay_matches_batch,
             "prefill_logit_err": logit_err, "prefill_logit_tol": logit_tol,
+            "decode_ms_per_step": stats["decode_time_s"] * 1e3
+            / max(1, stats["decode_steps"]),
+            "decode_profile": decode_profile,
+            "param_bytes": _param_bytes(params),
+            "block_bytes": _param_bytes(params["blocks"]),
         }
     finally:
         eng.shutdown()
     out["seconds"] = time.monotonic() - t0
     emit(out)
+    # phase engine_w8 compares its settings' outputs with these
+    out["texts"] = [text for text, _ in results]
+    out["replay_ids"] = replays[0]
     return out
+
+
+def _param_bytes(tree) -> int:
+    return sum(_param_bytes(v) if isinstance(v, dict)
+               else v.numel() * v.element_size() for v in tree.values())
+
+
+def _first_diff(a, b):
+    """The first index where two token sequences differ (None: equal)."""
+    i = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+    if i is None and len(a) != len(b):
+        i = min(len(a), len(b))
+    return i
+
+
+def _decode_profile(eng, n_steps: int = 16) -> dict:
+    """CUDA kernel launches and device time per decode step, from
+    ``torch.profiler`` over one ``runner.decode`` call of ``n_steps``
+    steps with every slot active at length 600 (the writes land in the
+    trash page); the call is run once before, unprofiled."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    runner = eng.runner
+    B, MP = eng.cfg.max_slots, eng.cache_cfg.max_pages_per_seq
+    args = (np.ones(B, np.int32), np.full(B, 600, np.int32),
+            np.zeros((B, MP), np.int32), np.zeros(B, np.float32),
+            np.zeros(B, np.int32), np.ones(B, np.float32))
+    runner.decode(*args, n_steps=n_steps)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        runner.decode(*args, n_steps=n_steps)
+        torch.cuda.synchronize()
+    kernels = copies = 0
+    device_us = 0.0
+    by_name = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        if e.key.startswith(("Memcpy", "Memset")):
+            copies += e.count
+            continue
+        kernels += e.count
+        by_name[e.key[:70]] = by_name.get(e.key[:70], 0) + e.count
+        us = getattr(e, "self_device_time_total", None)
+        device_us += e.self_cuda_time_total if us is None else us
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    return {"n_steps": n_steps, "kernels_per_step": kernels / n_steps,
+            "copies_per_step": copies / n_steps,
+            "device_ms_per_step": device_us / 1e3 / n_steps,
+            "top_kernels_per_step": [[n, c / n_steps] for n, c in top]}
 
 
 def _interview_sessions(tokenizer, n_turns=3):
@@ -1563,10 +1644,7 @@ def phase_gateway_int8(bf16) -> dict:
                            context={"session_id": "dv-smoke-session-1"})
         ids = eng.tokenizer.encode(text)
         ref = bf16["report_ids"]
-        first_diff = next((i for i, (a, b) in enumerate(zip(ids, ref))
-                           if a != b), None)
-        if first_diff is None and len(ids) != len(ref):
-            first_diff = min(len(ids), len(ref))
+        first_diff = _first_diff(ids, ref)
         ks, vs = eng.kv_scales
         out = {
             "phase": "gateway_int8", "boot": boot, "meta": meta,
@@ -1578,6 +1656,378 @@ def phase_gateway_int8(bf16) -> dict:
         }
     finally:
         _shutdown(gw)
+    out["seconds"] = time.monotonic() - t0
+    emit(out)
+    return out
+
+
+W8_SETTINGS = (
+    ("fused", {"fuse_projections": True}),
+    ("int8_fused", {"quantize": "int8", "fuse_projections": True}),
+    ("int8_fused_pipelined", {"quantize": "int8", "fuse_projections": True,
+                              "pipeline_decode": True,
+                              "max_chained_decodes": 4}),
+)
+
+
+def _q8_check() -> dict:
+    """``qdot``'s int8 form on the card (one bf16 GEMM with a float32
+    output, ``torch.mm(..., out_dtype=torch.float32)``) against the float32
+    product of the same bf16 values, scaled, at the decode batch and
+    dv-base's fused gate|up width."""
+    from deepvision_tpu_torch.engine import model as model_lib
+    from deepvision_tpu_torch.engine.quant import quantize_weight
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED)
+    x = torch.randn(8, 768, generator=g, device="cuda").bfloat16()
+    qw = quantize_weight(torch.randn(768, 4096, generator=g, device="cuda")
+                         / 768 ** 0.5)
+    got = model_lib.qdot(x, qw, torch.float32)
+    want = (x.float() @ qw["q8"].float()) * qw["scale"]
+    err = (got - want).abs().max().item()
+    # exact products on both sides; the float32 sums' order may differ
+    tol = 1e-5 * want.abs().max().item()
+    if got.dtype != torch.float32 or not err <= tol:
+        raise AssertionError(f"int8 qdot on the card: {err} > {tol}")
+    return {"max_abs_err": err, "tol": tol}
+
+
+def phase_engine_w8(base) -> dict:
+    """Phase ``engine``'s traffic (dv-base, random weights from the seed,
+    8 json_mode report prompts of 300-900 tokens, 256 new, greedy, K=16)
+    under three serving settings: fused projections; int8 weights, fused;
+    the same, pipelined (4 chained calls).  Every output must parse, the
+    int8 block weights must take at most 0.55x the bf16 bytes, and prompt
+    0 replayed alone must give the same tokens int8 and int8 pipelined
+    (the same batches).  Parameter bytes, the decode step, kernel launches
+    a decode step (beside phase ``engine``'s unfused bf16 count), the
+    pipelined readback wait and the first token that differs from phase
+    ``engine``'s output are reported."""
+    from deepvision_tpu_torch.engine.engine import EngineConfig, LLMEngine
+    from deepvision_tpu_torch.engine.fuse import is_fused
+    from deepvision_tpu_torch.engine.kernels.flash_attention import (
+        flash_attention,
+    )
+    from deepvision_tpu_torch.engine.kernels.paged_attention import (
+        paged_attention_update,
+    )
+    from deepvision_tpu_torch.engine.quant import is_quantized
+
+    t0 = time.monotonic()
+    q8 = _q8_check()
+    tok_path = os.path.join(ROOT, "resources", "tokenizer", "dv_bpe_16k.json")
+    targets = [300, 380, 460, 540, 620, 700, 800, 900]
+    settings = {}
+    for name, setting in W8_SETTINGS:
+        t_set = time.monotonic()
+        eng = LLMEngine(EngineConfig(
+            model="dv-base", tokenizer=tok_path, checkpoint_dir=None,
+            device="cuda", max_slots=8, num_pages=1024, page_size=64,
+            max_pages_per_seq=32, decode_steps_per_call=16,
+            chunked_prefill=False, json_dfa=True, warmup=True, seed=SEED,
+            **setting))
+        try:
+            boot_s = time.monotonic() - t_set
+            eng.start()
+            params = eng.runner.params
+            if not is_fused(params) or is_quantized(params) != (
+                    "quantize" in setting):
+                raise AssertionError(f"{name}: params not transformed")
+            prompts = _report_prompts(eng.tokenizer, targets)
+
+            def run(p):
+                return eng.generate_text(p, max_tokens=256, temperature=0.0,
+                                         json_mode=True, timeout=600)
+
+            flash_attention.launches = 0
+            paged_attention_update.launches = 0
+            t_serve = time.monotonic()
+            with concurrent.futures.ThreadPoolExecutor(len(prompts)) as ex:
+                results = list(ex.map(run, prompts))
+            serve_s = time.monotonic() - t_serve
+            launches = {"flash_fwd": flash_attention.launches,
+                        "paged_decode_update": paged_attention_update.launches}
+            if min(launches.values()) <= 0:
+                raise AssertionError(f"{name}: a kernel was not launched: "
+                                     f"{launches}")
+            for text, meta in results:
+                json.loads(text)  # raises on unparseable output
+                if meta["completion_tokens"] <= 0:
+                    raise AssertionError(f"{name}: empty completion {meta}")
+            stats = eng.stats()
+            sched = eng.scheduler
+            replay = None
+            if "quantize" in setting:
+                res = eng.submit_tokens(eng.tokenizer.encode(prompts[0]),
+                                        max_tokens=256, temperature=0.0,
+                                        json_mode=True).wait(600)
+                if res is None or not res.ok:
+                    raise AssertionError(f"{name}: replay failed: {res}")
+                replay = res.token_ids
+            enc = eng.tokenizer.encode
+            completion = sum(m["completion_tokens"] for _, m in results)
+            settings[name] = {
+                "setting": setting, "boot_s": boot_s,
+                "param_bytes": _param_bytes(params),
+                "block_bytes": _param_bytes(params["blocks"]),
+                "json_parsed": len(results), "serve_s": serve_s,
+                "completion_tokens": completion,
+                "decode_tokens_per_s": completion / serve_s,
+                "decode_ms_per_step": stats["decode_time_s"] * 1e3
+                / max(1, stats["decode_steps"]),
+                "decode_steps": stats["decode_steps"],
+                "readback_wait_s": sched.readback_wait_s,
+                "readback_wait_ms_per_step": sched.readback_wait_s * 1e3
+                / max(1, stats["decode_steps"]),
+                "ttft_ms_p50": sorted(m["queue_wait_ms"] + m["prefill_ms"]
+                                      for _, m in results)[len(results) // 2],
+                "launches": launches,
+                "decode_profile": _decode_profile(eng),
+                "first_token_differing_from_engine": [
+                    _first_diff(enc(text), enc(ref)) for (text, _), ref
+                    in zip(results, base["texts"])],
+                "replay_first_diff_from_engine": (
+                    None if replay is None
+                    else _first_diff(replay, base["replay_ids"])),
+                "texts": [text for text, _ in results], "replay": replay,
+            }
+        finally:
+            eng.shutdown()
+        del eng, params
+        gc.collect()
+        torch.cuda.empty_cache()
+        settings[name]["seconds"] = time.monotonic() - t_set
+
+    b, c = settings["int8_fused"], settings["int8_fused_pipelined"]
+    if b["replay"] != c["replay"]:
+        raise AssertionError(
+            f"pipelined int8 replay differs from int8 at token "
+            f"{_first_diff(b['replay'], c['replay'])}")
+    ratio = b["block_bytes"] / settings["fused"]["block_bytes"]
+    if not ratio <= 0.55:
+        raise AssertionError(f"int8 block bytes are {ratio:.3f}x bf16")
+    concurrent_same = b["texts"] == c["texts"]
+    for v in settings.values():
+        del v["texts"], v["replay"]
+    out = {"phase": "engine_w8", "model": "dv-base",
+           "weights": f"random (seed {SEED})", "q8_qdot_check": q8,
+           "settings": settings, "int8_block_bytes_ratio": ratio,
+           "unfused_bf16": {"param_bytes": base["param_bytes"],
+                            "block_bytes": base["block_bytes"],
+                            "decode_ms_per_step": base["decode_ms_per_step"],
+                            "decode_profile": base["decode_profile"]},
+           "pipelined_replay_equals_int8": True,
+           "pipelined_concurrent_texts_equal_int8": concurrent_same,
+           "seconds": time.monotonic() - t0}
+    emit(out)
+    return out
+
+
+def phase_gateway_w8(bf16) -> dict:
+    """The app's gateway with ``ENGINE_QUANTIZE=int8``,
+    ``ENGINE_FUSE_PROJECTIONS=1`` and ``ENGINE_PIPELINE_DECODE=1`` over
+    its defaults: every engine must serve int8, fused and pipelined; a
+    question and the report draft must parse; ``embed_texts`` must give
+    None on those params (as in the JAX app).  Boot time, each call's meta
+    and the report's first token that differs from phase ``gateway``'s
+    are reported."""
+    from deepvision_tpu_torch.engine.fuse import is_fused
+    from deepvision_tpu_torch.engine.quant import is_quantized
+
+    t0 = time.monotonic()
+    gw, boot, _, _ = _gateway_boot({"ENGINE_QUANTIZE": "int8",
+                                    "ENGINE_FUSE_PROJECTIONS": "1",
+                                    "ENGINE_PIPELINE_DECODE": "1"})
+    try:
+        for m, eng in gw.engines.items():
+            p = eng.runner.params
+            if not (is_quantized(p) and is_fused(p)
+                    and eng.scheduler.pipeline_decode):
+                raise AssertionError(f"gateway_w8: {m} is not int8, fused "
+                                     f"and pipelined")
+        ctx = {"session_id": "dv-smoke-session-w8"}
+        q_prompt, _ = _question_prompts()
+        base = gw.engines["dv-base"]
+        r_prompt = _report_prompts(base.tokenizer, [800])[0]
+        _, meta_q = _call(gw, q_prompt, "question", "question", "dv-fast",
+                          max_tokens=128, context=ctx)
+        text, meta_r = _call(gw, r_prompt, "report_draft", "report_draft",
+                             "dv-base", max_tokens=256, temperature=0.0,
+                             context=ctx)
+        engine_embeds = {m: eng.embed_texts(["采购预算"])
+                         for m, eng in gw.engines.items()}
+        gateway_embed = gw.embed_texts(["采购预算"])
+        if gateway_embed is not None or any(
+                v is not None for v in engine_embeds.values()):
+            raise AssertionError("gateway_w8: embed_texts gave vectors on "
+                                 "int8/fused params")
+        ids = base.tokenizer.encode(text)
+        out = {
+            "phase": "gateway_w8", "boot": boot,
+            "meta": {"question": meta_q, "report_draft": meta_r},
+            "json_parsed": 2,
+            "param_bytes": {m: _param_bytes(e.runner.params)
+                            for m, e in gw.engines.items()},
+            "readback_wait_s": {m: e.scheduler.readback_wait_s
+                                for m, e in gw.engines.items()},
+            "embed_texts": {"engines": {m: None for m in engine_embeds},
+                            "gateway": None},
+            "first_token_differing_from_bf16": _first_diff(
+                ids, bf16["report_ids"]),
+            "tokens": len(ids), "bf16_tokens": len(bf16["report_ids"]),
+        }
+    finally:
+        _shutdown(gw)
+    out["seconds"] = time.monotonic() - t0
+    emit(out)
+    return out
+
+
+class LlamaConfig:
+    """The attributes of a HuggingFace ``LlamaConfig`` that the importer
+    reads, so that the phase runs without ``transformers`` installed."""
+
+    def __init__(self, **kw):
+        self.__dict__.update(kw)
+
+
+def _hf_state_dict(c, gen):
+    """An HF-named Llama state dict (``[out, in]`` projections, full-scale
+    RMSNorm weights, an untied ``lm_head``) of seeded random tensors."""
+    D, F, V = c.hidden_size, c.intermediate_size, c.vocab_size
+    HD = c.head_dim
+    qd, kvd = c.num_attention_heads * HD, c.num_key_value_heads * HD
+
+    def w(*shape):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * 0.02).cpu()
+
+    def norm():
+        return (1.0 + 0.1 * torch.randn(D, generator=gen,
+                                        device="cuda")).cpu()
+
+    sd = {"model.embed_tokens.weight": w(V, D), "model.norm.weight": norm(),
+          "lm_head.weight": w(V, D)}
+    for i in range(c.num_hidden_layers):
+        p = f"model.layers.{i}"
+        sd.update({
+            f"{p}.input_layernorm.weight": norm(),
+            f"{p}.post_attention_layernorm.weight": norm(),
+            f"{p}.self_attn.q_proj.weight": w(qd, D),
+            f"{p}.self_attn.k_proj.weight": w(kvd, D),
+            f"{p}.self_attn.v_proj.weight": w(kvd, D),
+            f"{p}.self_attn.o_proj.weight": w(D, qd),
+            f"{p}.mlp.gate_proj.weight": w(F, D),
+            f"{p}.mlp.up_proj.weight": w(F, D),
+            f"{p}.mlp.down_proj.weight": w(D, F),
+        })
+    return sd
+
+
+def phase_hf_import() -> dict:
+    """An HF-named state dict of seeded random tensors for a 2-layer
+    Llama-shaped config (d_model 1,024, 8 / 2 heads of 128, d_ff 2,816,
+    vocab 32,000, untied ``lm_head``) through ``infer_config_from_hf`` ->
+    ``convert_hf_state_dict`` -> ``from_numpy_params`` -> ``save_npz`` ->
+    ``LLMEngine(quantize="int8")``: 16 greedy tokens, the int8 untied
+    ``lm_head`` among the weights.  The kernel-path prefill logits of the
+    prompt and its tokens must agree with the plain float32
+    ``forward_train`` of the same (int8) params."""
+    import tempfile
+
+    from deepvision_tpu_torch.engine import model as model_lib
+    from deepvision_tpu_torch.engine.engine import EngineConfig, LLMEngine
+    from deepvision_tpu_torch.engine.hf_import import (
+        convert_hf_state_dict,
+        infer_config_from_hf,
+    )
+    from deepvision_tpu_torch.engine.kernels.flash_attention import (
+        flash_attention,
+    )
+    from deepvision_tpu_torch.engine.kernels.paged_attention import (
+        paged_attention_update,
+    )
+    from deepvision_tpu_torch.engine.kv_cache import CacheConfig, init_cache
+    from deepvision_tpu_torch.engine.quant import is_quantized_weight
+    from deepvision_tpu_torch.engine.weights import (
+        from_numpy_params,
+        save_npz,
+    )
+
+    t0 = time.monotonic()
+    hf_cfg = LlamaConfig(
+        vocab_size=32000, hidden_size=1024, intermediate_size=2816,
+        num_hidden_layers=2, num_attention_heads=8, num_key_value_heads=2,
+        head_dim=128, max_position_embeddings=4096, rms_norm_eps=1e-5,
+        rope_theta=10000.0, tie_word_embeddings=False)
+    cfg = infer_config_from_hf(hf_cfg, name="hf-llama-2l")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    sd = _hf_state_dict(hf_cfg, gen)
+    params = from_numpy_params(convert_hf_state_dict(sd, cfg), device="cuda")
+    del sd
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "hf-llama-2l.npz")
+        save_npz(path, params)
+        del params
+        eng = LLMEngine(EngineConfig(
+            model=cfg.name, tokenizer="byte", checkpoint_dir=path,
+            device="cuda", max_slots=2, num_pages=64, page_size=64,
+            max_pages_per_seq=8, decode_steps_per_call=8, quantize="int8",
+            json_dfa=False, seed=SEED), model_cfg=cfg)
+    try:
+        qp = eng.runner.params
+        if not is_quantized_weight(qp["lm_head"]):
+            raise AssertionError("hf_import: the untied lm_head is not int8")
+        prompt = eng.tokenizer.encode(_question_prompts()[0])[:200]
+        flash_attention.launches = 0
+        paged_attention_update.launches = 0
+        res = eng.submit_tokens(prompt, max_tokens=16, temperature=0.0,
+                                stop_token_ids=[]).wait(300)
+        if res is None or not res.ok or len(res.token_ids) != 16:
+            raise AssertionError(f"hf_import: generation failed: {res}")
+        launches = {"flash_fwd": flash_attention.launches,
+                    "paged_decode_update": paged_attention_update.launches}
+        if min(launches.values()) <= 0:
+            raise AssertionError(f"hf_import: a kernel was not launched "
+                                 f"{launches}")
+        seq = prompt + res.token_ids[:-1]
+        n = len(seq)
+        bucket = 256
+        cache = init_cache(cfg, CacheConfig(num_pages=bucket // 64 + 1,
+                                            page_size=64,
+                                            max_pages_per_seq=bucket // 64),
+                           device="cuda")
+        toks = torch.zeros(1, bucket, dtype=torch.int32, device="cuda")
+        toks[0, :n] = torch.tensor(seq, dtype=torch.int32)
+        pages = torch.arange(1, bucket // 64 + 1, dtype=torch.int32,
+                             device="cuda")[None]
+        got = model_lib.forward_prefill(
+            qp, cache, toks, torch.tensor([n], dtype=torch.int32,
+                                          device="cuda"), pages, cfg=cfg)[0]
+        with torch.no_grad():
+            plain = model_lib.forward_train(qp, toks[:, :n], cfg=cfg,
+                                            act_dtype=torch.float32)[0]
+        want = plain[-1]
+        err = (got - want).abs().max().item()
+        # bf16 activations through 2 layers against float32 ones, the same
+        # int8 weights: 5 % of the logit range, as phase engine allows
+        tol = 0.05 * want.abs().max().item() + 0.05
+        if not err <= tol:
+            raise AssertionError(f"hf_import: prefill logits vs float32 "
+                                 f"forward_train: {err} > {tol}")
+        plain_next = plain[len(prompt) - 1:].argmax(-1).tolist()
+        agree = float(np.mean([a == b for a, b in
+                               zip(plain_next, res.token_ids)]))
+        out = {
+            "phase": "hf_import", "config": cfg.__dict__,
+            "param_bytes": _param_bytes(qp), "tokens": res.token_ids,
+            "launches": launches, "logit_err": err, "logit_tol": tol,
+            "greedy_agreement_with_float32": agree,
+        }
+    finally:
+        eng.shutdown()
     out["seconds"] = time.monotonic() - t0
     emit(out)
     return out
@@ -1861,6 +2311,9 @@ def main() -> int:
     api = phase_paged_api()
     gateway = phase_gateway()
     phase_gateway_int8(gateway)
+    phase_engine_w8(eng)
+    phase_gateway_w8(gateway)
+    phase_hf_import()
     train = phase_train()
     # each kernel's launches come from the phase whose path it is
     launches = {**eng["launches"],

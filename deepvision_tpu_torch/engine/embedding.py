@@ -45,7 +45,7 @@ def _encode_hidden(params, tokens, seq_lens, *, cfg: ModelConfig):
     for i in range(cfg.n_layers):
         blk = model_lib._layer(params, i)
         h = model_lib.rms_norm(x, blk["ln1"], cfg.rms_eps)
-        q, k, v = model_lib._qkv_proj(h, blk, torch.bfloat16)
+        q, k, v = model_lib._qkv_proj(h, blk, cfg, torch.bfloat16)
         q = model_lib.apply_rope(q.reshape(B, S, -1, HD), rope)
         k = model_lib.apply_rope(k.reshape(B, S, -1, HD), rope)
         v = v.reshape(B, S, -1, HD)

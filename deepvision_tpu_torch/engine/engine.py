@@ -18,8 +18,10 @@ import numpy as np
 import torch
 
 from deepvision_tpu_torch.engine.config import ModelConfig, get_model_config
+from deepvision_tpu_torch.engine.fuse import fuse_params
 from deepvision_tpu_torch.engine.kv_cache import CacheConfig, PageAllocator
 from deepvision_tpu_torch.engine.model import calibrate_kv_scales
+from deepvision_tpu_torch.engine.quant import is_quantized, quantize_params
 from deepvision_tpu_torch.engine.runner import ModelRunner
 from deepvision_tpu_torch.engine.scheduler import (
     HIGH,
@@ -70,28 +72,28 @@ class EngineConfig:
     # Pallas interpret mode has no counterpart (a wrapper runs its plain
     # version on CPU tensors, its CUDA kernel on CUDA tensors).
     interpret: Optional[bool] = None
-    # Chained fused decode calls; read only by pipelined decode, which
-    # raises until it is ported.
+    # Pipelined decode: chain up to max_chained_decodes decode calls, each
+    # dispatched before the previous one's tokens are read back.
+    pipeline_decode: bool = False
     max_chained_decodes: int = 4
     # int8 KV page pools ("int8" | ""): static per-(layer, kv head) scales
     # calibrated at boot on a fixed interview prompt (calibrate_kv_scales).
     kv_quantize: str = ""
-    # Settings of the JAX package this slice has not ported: anything but
+    # Weight-only int8 ("int8" | ""): block matmul weights and an untied
+    # lm_head as int8 with per-output-channel scales (engine/quant.py).
+    quantize: str = ""
+    # One matmul for q|k|v and one for gate|up (engine/fuse.py).
+    fuse_projections: bool = False
+    # Settings of the JAX package the port has not ported: anything but
     # the defaults raises NotImplementedError.
     tp: int = 1
     vocab_sharded: Optional[bool] = None
-    quantize: str = ""
-    fuse_projections: bool = False
-    pipeline_decode: bool = False
 
 
 _NOT_PORTED = (
     ("tp", 1, "tensor parallelism comes with the multi-device slice"),
     ("vocab_sharded", None, "the vocab-sharded embedding and logits come "
                             "with the multi-device slice"),
-    ("quantize", "", "weight-only int8 comes in a later slice"),
-    ("fuse_projections", False, "projection fusion comes in a later slice"),
-    ("pipeline_decode", False, "pipelined decode comes in a later slice"),
     ("warmup_buckets", (128, 256, 512, 1024),
      "the warmup runs the runner's batch_buckets, which every prefill pads "
      "to; other warmup sizes have no counterpart"),
@@ -134,8 +136,16 @@ class LLMEngine:
                               device=self.device)
         self.kv_scales = None
         if self.cache_cfg.quantized:
+            # on the raw params, before the weight transforms below
             self.kv_scales = calibrate_kv_scales(
                 params, self._calibration_tokens(), cfg=self.model_cfg)
+        if cfg.fuse_projections and cfg.tp <= 1:
+            params = fuse_params(params, self.model_cfg)
+        if cfg.quantize == "int8":
+            params = quantize_params(params)
+        elif cfg.quantize:
+            raise ValueError(f"unknown quantize mode {cfg.quantize!r}; "
+                             "supported: int8")
 
         self.json_dfa = None
         if (cfg.json_dfa
@@ -178,6 +188,8 @@ class LLMEngine:
             decode_steps_per_call=cfg.decode_steps_per_call,
             dfa=self.json_dfa,
             prefill_batch_max=cfg.prefill_batch_max,
+            pipeline_decode=cfg.pipeline_decode,
+            max_chained_decodes=cfg.max_chained_decodes,
         )
         self.warmup_s = None
         self._started = False
@@ -334,11 +346,13 @@ class LLMEngine:
     def embed_texts(self, texts):
         """Batched doc embedding on the SERVING params (engine/embedding.py
         encoder: transformer forward + mean-pool, no LM head), built on
-        first use with the engine's tokenizer.  The JAX engine returns None
-        for int8-quantized or projection-fused params; here those settings
-        raise at construction, so the params always have the unfused
-        layout the encoder reads."""
+        first use with the engine's tokenizer.  Unavailable (returns None)
+        when the params are int8-quantized or projection-fused, as in the
+        JAX engine: the encoder reads the unfused bf16 layout."""
         if getattr(self, "_embedder", None) is None:
+            blocks = self.runner.params.get("blocks") or {}
+            if is_quantized(self.runner.params) or "wq" not in blocks:
+                return None
             from deepvision_tpu_torch.engine.embedding import (
                 DocumentEmbedder,
             )

@@ -4,7 +4,10 @@ Same parameter tree and the same bf16 rounding points as the JAX package's
 ``engine/model.py``: q/k/v and gate/up projections produce bf16, the
 attention out-projection, the MLP down-projection and the logits are
 computed in float32 from bf16 operands, RMSNorm, RoPE and SiLU run in
-float32.  Attention goes through the kernels package: the flash kernel for
+float32.  The params may carry the serving transforms of the JAX
+package: int8 weights (engine/quant.py, taken through ``qdot``'s dict
+form) and the fused ``w_qkv`` / ``w_gate_up`` leaves (engine/fuse.py).
+Attention goes through the kernels package: the flash kernel for
 batched prefill, the paged chunk kernel for chunked prefill, the fused
 paged kernel for decode (each runs its plain version on CPU tensors).  The
 forwards write the KV pools in place.
@@ -68,24 +71,58 @@ def apply_rope(x: torch.Tensor, rope) -> torch.Tensor:
     return out.to(x.dtype)
 
 
-def qdot(x: torch.Tensor, w: torch.Tensor,
-         out_dtype=torch.bfloat16) -> torch.Tensor:
-    """``x @ w`` with JAX's ``preferred_element_type`` semantics: a float32
-    result (or any float32 operand) multiplies in float32, where products
-    of bf16 values are exact; otherwise a bf16 product rounded once."""
+def qdot(x: torch.Tensor, w, out_dtype=torch.bfloat16) -> torch.Tensor:
+    """``x @ w`` for a plain weight or an int8 weight dict (engine/quant.py).
+
+    Plain weights follow JAX's ``preferred_element_type``: a float32 result
+    (or any float32 operand) multiplies in float32, where products of bf16
+    values are exact; otherwise a bf16 product rounded once.  For
+    ``{"q8", "scale"}`` weights, as the JAX package's ``qdot``: ``x`` as
+    bf16 times ``q8`` as bf16 with a float32 result, then the
+    per-output-channel scale multiplies that float32 result, and only the
+    scaled result is rounded to ``out_dtype``."""
+    if isinstance(w, dict):
+        return (_q8_matmul(x, w["q8"]) * w["scale"]).to(out_dtype)
     if out_dtype == torch.float32 or torch.float32 in (x.dtype, w.dtype):
         return torch.matmul(x.float(), w.float()).to(out_dtype)
     return torch.matmul(x, w.to(x.dtype)).to(out_dtype)
 
 
-def _qkv_proj(h, blk, dtype=torch.bfloat16):
+def _q8_matmul(x: torch.Tensor, q8: torch.Tensor) -> torch.Tensor:
+    """``bf16(x) @ bf16(q8)`` accumulated and returned in float32.  On the
+    card one bf16 GEMM with a float32 output (``torch.mm(...,
+    out_dtype=torch.float32)``); on the CPU, which has no such GEMM, the
+    same products in a float32 matmul (bf16 values multiply exactly in
+    float32)."""
+    xb = x.to(torch.bfloat16)
+    if xb.is_cuda:
+        y = torch.mm(xb.reshape(-1, xb.shape[-1]), q8.to(torch.bfloat16),
+                     out_dtype=torch.float32)
+        return y.reshape(*xb.shape[:-1], q8.shape[-1])
+    return torch.matmul(xb.float(), q8.float())
+
+
+def _qkv_proj(h, blk, cfg: ModelConfig, dtype=torch.bfloat16):
+    """q/k/v projections; one matmul when the params carry the fused
+    ``w_qkv`` leaf (engine/fuse.py), split by column."""
+    if "w_qkv" in blk:
+        qkv = qdot(h, blk["w_qkv"], dtype)
+        q_w = cfg.n_heads * cfg.head_dim
+        kv_w = cfg.n_kv_heads * cfg.head_dim
+        return (qkv[..., :q_w], qkv[..., q_w:q_w + kv_w],
+                qkv[..., q_w + kv_w:])
     return (qdot(h, blk["wq"], dtype), qdot(h, blk["wk"], dtype),
             qdot(h, blk["wv"], dtype))
 
 
 def _mlp(x, blk, compute_dtype=torch.bfloat16):
-    gate = qdot(x, blk["w_gate"], compute_dtype)
-    up = qdot(x, blk["w_up"], compute_dtype)
+    if "w_gate_up" in blk:
+        gu = qdot(x, blk["w_gate_up"], compute_dtype)
+        F = gu.shape[-1] // 2
+        gate, up = gu[..., :F], gu[..., F:]
+    else:
+        gate = qdot(x, blk["w_gate"], compute_dtype)
+        up = qdot(x, blk["w_up"], compute_dtype)
     h = torch.nn.functional.silu(gate.float()).to(x.dtype) * up
     return qdot(h, blk["w_down"], torch.float32).to(x.dtype)
 
@@ -97,14 +134,21 @@ def _embed(params, tokens, dtype=torch.bfloat16):
 def _logits(x, params, cfg: ModelConfig):
     """x: [..., D] final hidden -> float32 logits [..., V]."""
     w = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
-    logits = torch.matmul(x.float(), w.float())
+    if isinstance(w, dict):    # an int8 untied lm_head
+        logits = qdot(x, w, torch.float32)
+    else:
+        logits = torch.matmul(x.float(), w.float())
     if cfg.logit_softcap:
         logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
     return logits
 
 
 def _layer(params, i: int) -> dict:
-    return {name: leaf[i] for name, leaf in params["blocks"].items()}
+    """Layer ``i``'s block leaves; an int8 leaf ``{"q8", "scale"}`` is
+    indexed inside."""
+    return {name: ({k: t[i] for k, t in leaf.items()}
+                   if isinstance(leaf, dict) else leaf[i])
+            for name, leaf in params["blocks"].items()}
 
 
 def _kv_scales(cache, i: int):
@@ -145,7 +189,7 @@ def forward_prefill(params, cache, tokens, seq_lens, prefill_pages, *,
     for i in range(cfg.n_layers):
         blk = _layer(params, i)
         h = rms_norm(x, blk["ln1"], cfg.rms_eps)
-        q, k, v = _qkv_proj(h, blk)
+        q, k, v = _qkv_proj(h, blk, cfg)
         q = apply_rope(q.reshape(B, S, -1, HD), rope)
         k = apply_rope(k.reshape(B, S, -1, HD), rope)
         v = v.reshape(B, S, -1, HD)
@@ -189,7 +233,7 @@ def forward_prefill_chunk(params, cache, tokens, chunk_starts, seq_lens,
     for i in range(cfg.n_layers):
         blk = _layer(params, i)
         h = rms_norm(x, blk["ln1"], cfg.rms_eps)
-        q, k, v = _qkv_proj(h, blk)
+        q, k, v = _qkv_proj(h, blk, cfg)
         q = apply_rope(q.reshape(B, C, -1, HD), rope)
         k = apply_rope(k.reshape(B, C, -1, HD), rope)
         v = v.reshape(B, C, -1, HD)
@@ -230,7 +274,7 @@ def forward_decode(params, cache, tokens, seq_lens, block_tables, *,
     for i in range(cfg.n_layers):
         blk = _layer(params, i)
         h = rms_norm(x, blk["ln1"], cfg.rms_eps)
-        q, k, v = _qkv_proj(h, blk)
+        q, k, v = _qkv_proj(h, blk, cfg)
         q = apply_rope(q.reshape(B, -1, HD), rope)
         k = apply_rope(k.reshape(B, -1, HD), rope)
         v = v.reshape(B, -1, HD)
@@ -268,7 +312,7 @@ def calibrate_kv_scales(params, tokens, *, cfg: ModelConfig,
     for i in range(cfg.n_layers):
         blk = _layer(params, i)
         h = rms_norm(x, blk["ln1"], cfg.rms_eps)
-        q, k, v = _qkv_proj(h, blk)
+        q, k, v = _qkv_proj(h, blk, cfg)
         q = apply_rope(q.reshape(B, S, -1, HD), rope)
         k = apply_rope(k.reshape(B, S, -1, HD), rope)
         v = v.reshape(B, S, -1, HD)
@@ -309,7 +353,7 @@ def forward_train(params, tokens, *, cfg: ModelConfig,
     for i in range(cfg.n_layers):
         blk = _layer(params, i)
         h = rms_norm(x, blk["ln1"], cfg.rms_eps)
-        q, k, v = _qkv_proj(h, blk, act_dtype)
+        q, k, v = _qkv_proj(h, blk, cfg, act_dtype)
         q = apply_rope(q.reshape(B, S, -1, HD), rope)
         k = apply_rope(k.reshape(B, S, -1, HD), rope)
         v = v.reshape(B, S, -1, HD)

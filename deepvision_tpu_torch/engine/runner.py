@@ -15,6 +15,10 @@ scheduler calls:
 * ``decode(...)`` — ``n_steps`` decode steps for every slot, run as a
   Python loop whose tokens, grammar states and budgets stay on the device;
   the call syncs with the host once, to read the ``[n_steps, B]`` tokens.
+* ``decode_async(...)`` + ``start_readback(out)`` — the same without the
+  sync, for pipelined decode: the next call is dispatched from the
+  previous one's device-resident last tokens and grammar states before the
+  previous call's tokens are read back.
 
 Inactive slots point at the trash page, so the decode batch has one fixed
 shape.  The pools are updated in place, and every step runs on the
@@ -47,6 +51,21 @@ def pick_bucket(n: int, buckets: Sequence[int] = PREFILL_BUCKETS) -> int:
         if n <= b:
             return b
     raise ValueError(f"prompt of {n} tokens exceeds max bucket {buckets[-1]}")
+
+
+class Readback:
+    """A device-to-host copy in flight (:meth:`ModelRunner.start_readback`)."""
+
+    __slots__ = ("host", "done")
+
+    def __init__(self, host: torch.Tensor, done):
+        self.host = host
+        self.done = done
+
+    def wait(self) -> np.ndarray:
+        if self.done is not None:
+            self.done.synchronize()
+        return self.host.numpy()
 
 
 class ModelRunner:
@@ -108,7 +127,30 @@ class ModelRunner:
         self._gen.manual_seed(rng_seed)
 
     def _tensor(self, arr, dtype) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(arr), dtype=dtype).to(self.device)
+        """``arr`` as a ``dtype`` tensor on the runner's device.  A tensor
+        already there passes through untouched (a chained decode call's
+        tokens and grammar states); host arrays go to the card through
+        pinned memory without blocking, so a call dispatched while an
+        earlier one runs does not wait for it."""
+        if isinstance(arr, torch.Tensor):
+            return arr.to(self.device, dtype)
+        t = torch.as_tensor(np.asarray(arr), dtype=dtype)
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t
+
+    def start_readback(self, out: torch.Tensor) -> "Readback":
+        """Enqueue the copy of ``out`` to the host behind the work already
+        on the stream; :meth:`Readback.wait` returns it as numpy.  On the
+        card the copy lands in pinned memory and an event marks its end, so
+        the wait does not include calls dispatched after this one."""
+        if self.device.type != "cuda":
+            return Readback(out, None)
+        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+        host.copy_(out, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return Readback(host, done)
 
     # ------------------------------------------------------------------
     # Public API (numpy in/out; called from the scheduler thread)
@@ -288,7 +330,11 @@ class ModelRunner:
         budgets=None,
     ):
         """Enqueue ``n_steps`` decode steps without a host sync.  Returns
-        device tensors ``(out [n_steps, B], last_tok [B], last_state [B])``."""
+        device tensors ``(out [n_steps, B], last_tok [B], last_state [B])``.
+
+        ``tokens`` and ``dfa_states`` may be host arrays or tensors already
+        on the device: a chained call (pipelined decode) passes the previous
+        call's ``last_tok`` and ``last_state`` as they are."""
         B = len(seq_lens)
         if dfa_states is None:
             dfa_states = np.zeros(B, np.int32)

@@ -1,7 +1,7 @@
 """Continuous-batching scheduler with two priority classes.
 
-A copy of the JAX package's ``engine/scheduler.py`` without its pipelined
-decode chains.  One scheduler owns one ModelRunner.  The step loop:
+A copy of the JAX package's ``engine/scheduler.py``.  One scheduler owns
+one ModelRunner.  The step loop:
 
 1. **Admit**: pop HIGH requests first (deadline-ordered), then LOW only when
    no HIGH is waiting; each request takes KV pages (with a chunked runner,
@@ -14,7 +14,9 @@ decode chains.  One scheduler owns one ModelRunner.  The step loop:
    decode.
 3. **Decode**: one fixed-shape decode call over all slots (inactive slots
    aim at the trash page), sampling on the device; K=1 while a prompt is
-   mid-prefill.
+   mid-prefill.  With ``pipeline_decode`` up to ``max_chained_decodes``
+   calls chain: call k+1 is dispatched from call k's device-resident last
+   tokens and grammar states before call k's tokens are read back.
 4. **Retire**: EOS / max_tokens / page-exhaustion; pages freed, waiters
    signalled.
 
@@ -165,7 +167,15 @@ class ContinuousBatchingScheduler:
         interleave_min_tokens: int = 4096,
         dfa=None,
         prefill_batch_max: int = 4,
+        pipeline_decode: bool = False,
+        max_chained_decodes: int = 4,
     ):
+        # Pipelined decode: chain up to max_chained_decodes calls,
+        # dispatching call k+1 from device-resident state before reading
+        # call k back.  Admission always outranks chaining, so a waiting
+        # request waits for at most one call in flight.
+        self.pipeline_decode = pipeline_decode
+        self.max_chained_decodes = max(2, max_chained_decodes)
         self.prefill_batch_max = max(1, prefill_batch_max)
         # Grammar DFA (engine/constrained.JsonTokenDfa) for json_mode
         # requests; None disables constrained decoding.
@@ -198,6 +208,8 @@ class ContinuousBatchingScheduler:
         self.rejected_overload = 0
         # wall time spent inside decode calls (dispatch + readback)
         self.decode_time_s = 0.0
+        # host time spent waiting for pipelined calls' tokens
+        self.readback_wait_s = 0.0
 
         cache_cfg = runner.cache_cfg
         self._page_size = cache_cfg.page_size
@@ -480,10 +492,16 @@ class ContinuousBatchingScheduler:
 
     # -- decode ---------------------------------------------------------
 
-    def _gather_decode_batch(self, K: int):
-        """Build one decode call's host inputs; sequences that cannot take
-        K more tokens (context or KV pages exhausted) are returned to be
-        retired at length."""
+    def _gather_decode_batch(self, K: int, ahead: int = 0):
+        """Build one decode call's host inputs.
+
+        ``ahead`` is the number of tokens already promised to an in-flight
+        chained call but not yet appended to ``seq.tokens``.  With
+        ``ahead=0`` sequences that cannot take K more tokens (context or KV
+        pages exhausted) are returned to be retired at length; for a chained
+        call (``ahead > 0``) such a sequence stops the chain instead
+        (returns ``(None, [])``): retiring waits for the readback.
+        """
         B = self.max_slots
         MP = self._max_pages_per_seq
         max_len = MP * self._page_size
@@ -500,16 +518,20 @@ class ContinuousBatchingScheduler:
         for slot, seq in self._active.items():
             # seq.tokens already includes the token being fed this step, so
             # its position is len-1 and seq_len (inclusive) is len.
-            new_len = len(seq.tokens)
+            new_len = len(seq.tokens) + ahead
             # K steps write up to new_len + K - 1 positions; every write
             # must land in an owned page.
             need = pages_needed(new_len + K - 1, self._page_size)
             if new_len + K - 1 > max_len:
+                if ahead:
+                    return None, []
                 retire_now.append(seq)
                 continue
             if need > len(seq.pages):
                 extra = self.alloc.try_alloc(need - len(seq.pages))
                 if extra is None:
+                    if ahead:
+                        return None, []
                     retire_now.append(seq)  # KV exhausted: finish at length
                     continue
                 seq.pages.extend(extra)
@@ -521,8 +543,12 @@ class ContinuousBatchingScheduler:
             topp[slot] = seq.req.top_p
             dstates[slot] = max(seq.dfa_state, 0)
             # output-token budget incl. the next sampled token; drives
-            # grammar force-close so json_mode parses even at max_tokens
-            budgets[slot] = max(seq.req.max_tokens - len(seq.generated), 1)
+            # grammar force-close so json_mode parses even at max_tokens.
+            # Tokens promised to an in-flight call count as generated
+            # (clamped: a chain's tokens past a slot's end are discarded
+            # at readback anyway).
+            budgets[slot] = max(
+                seq.req.max_tokens - len(seq.generated) - ahead, 1)
         return (tokens, lens, bt, temps, topk, topp, dstates,
                 budgets), retire_now
 
@@ -538,11 +564,16 @@ class ContinuousBatchingScheduler:
                 seq.queue_wait_ms, seq.prefill_ms, 0,
                 error=f"decode failed: {type(e).__name__}: {e}"))
 
-    def _consume_decode_out(self, out, K: int) -> List[tuple]:
+    def _consume_decode_out(self, out, K: int,
+                            skip_slots=()) -> List[tuple]:
         """Append one call's tokens to the active sequences; returns the
-        newly finished (seq, reason) pairs."""
+        newly finished (seq, reason) pairs.  ``skip_slots`` are sequences
+        that finished in an earlier call of a pipelined chain: the call in
+        flight still produced tokens for them, which are discarded here."""
         finished: List[tuple] = []
         for slot, seq in self._active.items():
+            if slot in skip_slots:
+                continue
             last_tok = None
             done = False
             for j in range(K):
@@ -577,6 +608,11 @@ class ContinuousBatchingScheduler:
             return bool(retired)
         tokens, lens, bt, temps, topk, topp, dstates, budgets = batch
         t_dec = time.monotonic()
+        if self.pipeline_decode and K > 1 and not self._prefilling:
+            try:
+                return self._decode_step_pipelined(K, batch)
+            finally:
+                self.decode_time_s += time.monotonic() - t_dec
         try:
             out = self.runner.decode(
                 tokens, lens, bt, temps, topk, topp, n_steps=K,
@@ -590,6 +626,79 @@ class ContinuousBatchingScheduler:
         for seq, reason in self._consume_decode_out(out, K):
             self._retire(seq, reason)
         return True
+
+    def _read(self, pending) -> np.ndarray:
+        t0 = time.monotonic()
+        out = pending.wait()
+        self.readback_wait_s += time.monotonic() - t0
+        return out
+
+    def _decode_step_pipelined(self, K: int, batch) -> bool:
+        """A chain of decode calls: call k+1 is dispatched, fed by call k's
+        device-resident last tokens and grammar states, before call k's
+        tokens are read back.  Each call's copy to the host is enqueued
+        (and marked by an event) before the next call is dispatched, so
+        reading call k does not wait for call k+1."""
+        tokens, lens, bt, temps, topk, topp, dstates, budgets = batch
+        runner = self.runner
+        try:
+            tok_dev, last_tok, last_state = runner.decode_async(
+                tokens, lens, bt, temps, topk, topp, n_steps=K,
+                dfa_states=dstates, budgets=budgets)
+            pending = runner.start_readback(tok_dev)
+        except Exception as e:  # noqa: BLE001
+            self._fail_active(e)
+            return True
+        chained = 1
+        while True:
+            can_chain = (
+                chained < self.max_chained_decodes
+                and not self._prefilling
+                # admission outranks chaining: if a waiting request could
+                # be admitted into a free slot, return to step()
+                and not (self._free_slots
+                         and (self._queues[HIGH] or self._queues[LOW]))
+            )
+            nxt = None
+            if can_chain:
+                # exactly one call is in flight and unread at dispatch time
+                # (call k is read right after k+1 is dispatched), so the
+                # not-yet-appended token count is always K
+                nxt, _ = self._gather_decode_batch(K, ahead=K)
+            if nxt is None:
+                for seq, reason in self._consume_decode_out(
+                        self._read(pending), K):
+                    self._retire(seq, reason)
+                return True
+            _, lens2, bt2, temps2, topk2, topp2, _, buds2 = nxt
+            try:
+                tok_dev, last_tok, last_state = runner.decode_async(
+                    last_tok, lens2, bt2, temps2, topk2, topp2, n_steps=K,
+                    dfa_states=last_state, budgets=buds2)
+                pending2 = runner.start_readback(tok_dev)
+                # read call k while call k+1 runs on the device
+                out = self._read(pending)
+            except Exception as e:  # noqa: BLE001
+                self._fail_active(e)
+                return True
+            finished = self._consume_decode_out(out, K)
+            pending = pending2
+            chained += 1
+            if finished:
+                # drain the call in flight, discarding its tokens for the
+                # finished slots; their pages are freed only after this
+                # readback (the device still reads their block tables)
+                try:
+                    out2 = self._read(pending)
+                except Exception as e:  # noqa: BLE001
+                    self._fail_active(e)
+                    return True
+                skip = {seq.slot for seq, _ in finished}
+                finished2 = self._consume_decode_out(out2, K,
+                                                     skip_slots=skip)
+                for seq, reason in finished + finished2:
+                    self._retire(seq, reason)
+                return True
 
     def _seq_finished(self, seq: _ActiveSeq, tok: int) -> bool:
         req = seq.req

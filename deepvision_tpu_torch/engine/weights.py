@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from deepvision_tpu_torch.engine.config import ModelConfig
+from deepvision_tpu_torch.engine.quant import is_quantized_weight
 
 
 def init_params(cfg: ModelConfig, *, device, seed: int = 0,
@@ -103,8 +104,12 @@ def load_npz(path: str, *, device) -> dict:
 
 
 def astype(params: dict, dtype) -> dict:
-    """Detached copies of a params tree's leaves in ``dtype``."""
-    return {name: (astype(leaf, dtype) if isinstance(leaf, dict)
+    """Detached copies of a params tree's leaves in ``dtype``.  An int8
+    weight ``{"q8", "scale"}`` (engine/quant.py) keeps its dtypes: cast, it
+    would no longer be the weight it stands for."""
+    return {name: ({k: t.detach() for k, t in leaf.items()}
+                   if is_quantized_weight(leaf)
+                   else astype(leaf, dtype) if isinstance(leaf, dict)
                    else leaf.detach().to(dtype))
             for name, leaf in params.items()}
 
