@@ -78,12 +78,29 @@ Phases, each printing one JSON line with its own seconds:
    ``ENGINE_FUSE_PROJECTIONS=1`` and ``ENGINE_PIPELINE_DECODE=1``: a
    question and the report draft must parse, ``embed_texts`` must give
    None (as in the JAX app);
-11. hf_import — an HF-named state dict of seeded random tensors (2-layer
+11. app     — the interview app on the card through its entry points:
+   ``create_app`` in engine mode (dv-fast on the question lanes, dv-base
+   on the report lanes, random weights from the seed, the app's
+   defaults, warmup on; lanes capped at 256 new tokens) and its test client: login, a session, a reference
+   document of several KB (chunked, summarised, embedded by the interview
+   assistant), next-question, submit-answer, a second next-question,
+   generate-report polled to completion, the report, a docx export,
+   ``/api/status`` and ``/api/metrics``.  Every status must be the JAX
+   app's, the report job must complete, #1, #2 and #3 must have been
+   launched by the HTTP traffic, and the second question's model work
+   must have resumed the session's cached prompt head through #3 exactly
+   where the app's path does; each request's latency and launches, the
+   AI calls' lanes and models and ``ai_generated`` per answer are
+   reported.  Then
+   ``python -m deepvision_tpu_torch.web.server`` in a subprocess on a free
+   port of 127.0.0.1 answers a question over real HTTP and exits when
+   stopped;
+12. hf_import — an HF-named state dict of seeded random tensors (2-layer
    Llama shape, head_dim 128, GQA, untied ``lm_head``) through the
    importer into ``LLMEngine(quantize="int8")``: 16 greedy tokens, and the
    kernel-path prefill logits against the plain float32 forward of the
    same int8 params;
-12. train   — dv-base fine-tuning through the port's ``Trainer`` at its
+13. train   — dv-base fine-tuning through the port's ``Trainer`` at its
    full width and depth: float32 params (random, seed 0), bf16
    activations, batch 8 x 2,049 tokens of seeded interview text through
    the dv_bpe_16k tokenizer, ``train_model.py``'s optimizer chain, the
@@ -92,12 +109,12 @@ Phases, each printing one JSON line with its own seconds:
    a step, one step at B=2 must agree with the plain attention through
    autograd (loss and every gradient leaf), and ``save_npz`` ->
    ``load_or_init`` must give back the same bits; one step is profiled;
-13. the card's name and power limit again, then the ``kernels`` line the
+14. the card's name and power limit again, then the ``kernels`` line the
    benchmark contract reads (seven kernels, each with its achieved
    TFLOP/s, whether it computes on the tensor cores or in fp32 on the
    CUDA cores and, for the kernels that split columns, the split count
-   and the time unsplit);
-14. shutdown, then the last line ``{"ok": true, "device": {...}}``.
+   and the time unsplit, and phase ``app``'s launches of #1-#3);
+15. shutdown, then the last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the script exits non-zero without the last
 line.  Without CUDA it exits 2 before any phase.
@@ -114,9 +131,14 @@ import math
 import os
 import re
 import shutil
+import socket
 import subprocess
 import sys
+import tempfile
+import threading
 import time
+import urllib.error
+import urllib.request
 
 import numpy as np
 import torch
@@ -1439,7 +1461,7 @@ def phase_paged_api() -> dict:
 
 # The app's lane models: dv-fast on the question lanes, dv-base on the
 # report lanes (deepvision_tpu/web/server.py); named, since "auto" picks
-# from the in-repo checkpoints, which the card's copy leaves out.
+# from the in-repo checkpoints, which a copy without ``*.npz`` lacks.
 GATEWAY_MODELS = {
     "AI_MODE": "engine", "QUESTION_MODEL_NAME": "dv-fast",
     "REPORT_MODEL_NAME": "dv-base", "REPORT_DRAFT_MODEL_NAME": "dv-base",
@@ -1884,6 +1906,449 @@ def phase_gateway_w8(bf16) -> dict:
     return out
 
 
+# The app's settings for phase ``app``: the lane models on random weights
+# from the engines' seed, the mock SMS login, and one admin (for
+# /api/metrics); every other setting is the app's default.  A checkout of
+# the repo holds trained checkpoints of both models, which the app would
+# load by default; os.devnull names no checkpoint, so ``load_or_init``
+# gives random weights from ``EngineConfig.seed`` in every checkout.
+APP_SETTINGS = {
+    **GATEWAY_MODELS, "ENGINE_CHECKPOINT_DIR": os.devnull,
+    "SMS_PROVIDER": "mock", "SMS_TEST_CODE": "666666",
+    "ADMIN_PHONE_NUMBERS": "13800000001", "SMS_SEND_COOLDOWN_SECONDS": "0",
+}
+APP_USER_PHONE = "13900000001"
+# Random weights never close their JSON, so each call runs to its token
+# cap; the caps bound the phase's time (the app's lanes allow up to 8,000).
+APP_MAX_TOKENS = 256
+APP_SERVER_STEP_S = 90.0
+
+
+def _reference_markdown():
+    """A reference document of several KB, in the app's markdown, from the
+    in-repo scenarios: one section a scenario, one paragraph a dimension."""
+    parts = ["# 业务背景资料\n"]
+    for path in sorted(glob.glob(os.path.join(ROOT, "resources", "scenarios",
+                                              "builtin", "*.json"))):
+        with open(path, encoding="utf-8") as fh:
+            sc = json.load(fh)
+        parts.append(f"\n## {sc['name']}\n\n{sc['description']}\n")
+        for d in sc["dimensions"]:
+            parts.append(f"\n### {d['name']}\n\n{d['description']}。现场访谈"
+                         f"关注：{'、'.join(d['key_aspects'])}。各区域仓库"
+                         "的出入库流程依赖纸质单据，月末盘点差异需要人工核对。\n")
+    return "".join(parts)
+
+
+def _settle_app_threads(timeout_s: float = 300.0) -> float:
+    """Wait for the app's background question prefetches and session
+    summaries; returns the seconds waited."""
+    t0 = time.monotonic()
+    for t in threading.enumerate():
+        if t.name.startswith(("dv-prefetch-", "dv-summary-")):
+            t.join(max(0.0, timeout_s - (time.monotonic() - t0)))
+            if t.is_alive():
+                raise AssertionError(f"app: {t.name} still running after "
+                                     f"{timeout_s} s")
+    return time.monotonic() - t0
+
+
+def _app_server_step(port_tmp: str) -> dict:
+    """``python -m deepvision_tpu_torch.web.server`` in a subprocess on a
+    free port of 127.0.0.1 (engine mode on the card, the lane models and
+    the mock SMS login in its environment): poll ``/api/status`` until the
+    engines are up, log in and ask one question over real HTTP (it must
+    get 200), then stop the server and check that it exits."""
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    base = f"http://127.0.0.1:{port}"
+    env = dict(os.environ, **APP_SETTINGS,
+               QUESTION_FAST_MAX_TOKENS=str(APP_MAX_TOKENS))
+    env.pop("DEEPVISION_TPU_TESTING", None)  # warmup on, as served
+    log_path = os.path.join(port_tmp, "server.log")
+    cookies = {}
+
+    def call(method, path, body=None, timeout=30.0):
+        data = None if body is None else json.dumps(body).encode("utf-8")
+        req = urllib.request.Request(base + path, data=data, method=method)
+        if data is not None:
+            req.add_header("Content-Type", "application/json")
+        if cookies:
+            req.add_header("Cookie", "; ".join(f"{k}={v}"
+                                               for k, v in cookies.items()))
+        t = time.monotonic()
+        try:
+            with urllib.request.urlopen(req, timeout=timeout) as r:
+                status, raw, headers = r.status, r.read(), r.headers
+        except urllib.error.HTTPError as e:
+            status, raw, headers = e.code, e.read(), e.headers
+        for c in headers.get_all("Set-Cookie") or []:
+            name, _, value = c.split(";", 1)[0].partition("=")
+            cookies[name.strip()] = value.strip()
+        return status, json.loads(raw or b"null"), (time.monotonic() - t) * 1e3
+
+    t0 = time.monotonic()
+    with open(log_path, "wb") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "deepvision_tpu_torch.web.server",
+             "--host", "127.0.0.1", "--port", str(port),
+             "--data-dir", os.path.join(port_tmp, "data")],
+            cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT)
+    out = {"port": port, "requests": {}}
+    models = {APP_SETTINGS["QUESTION_MODEL_NAME"],
+              APP_SETTINGS["REPORT_MODEL_NAME"]}
+    try:
+        up = None
+        while up is None:
+            if proc.poll() is not None:
+                raise AssertionError(f"app server exited with "
+                                     f"{proc.returncode} before serving")
+            if time.monotonic() - t0 > APP_SERVER_STEP_S:
+                raise AssertionError(f"app server not up after "
+                                     f"{APP_SERVER_STEP_S} s")
+            try:
+                status, body, _ = call("GET", "/api/status", timeout=2.0)
+            except (urllib.error.URLError, ConnectionError, OSError):
+                time.sleep(0.5)
+                continue
+            if (status == 200 and body["ai_mode"] == "engine"
+                    and set(body["engine"]) == models):
+                up = body
+        out["up_s"] = time.monotonic() - t0
+        steps = [
+            ("send_code", "POST", "/api/auth/sms/send-code",
+             {"phone": APP_USER_PHONE}, 200),
+            ("login", "POST", "/api/auth/login/code",
+             {"phone": APP_USER_PHONE, "code": "666666"}, 200),
+            ("create_session", "POST", "/api/sessions",
+             {"topic": "仓储管理系统选型", "scenario_id": "product-requirement",
+              "interview_mode": "quick"}, 201),
+        ]
+        sid = None
+        for name, method, path, body, want in steps:
+            status, got, ms = call(method, path, body)
+            out["requests"][name] = {"status": status, "ms": ms}
+            if status != want:
+                raise AssertionError(f"app server {name}: {status} {got}")
+            sid = got.get("session_id", sid) if isinstance(got, dict) else sid
+        left = APP_SERVER_STEP_S - (time.monotonic() - t0)
+        status, q, ms = call("POST", f"/api/sessions/{sid}/next-question", {},
+                             timeout=max(left, 5.0))
+        out["requests"]["next_question"] = {
+            "status": status, "ms": ms,
+            "ai_generated": (q or {}).get("ai_generated"),
+            "tier": (q or {}).get("question_generation_tier")}
+        if status != 200 or not q.get("question"):
+            raise AssertionError(f"app server next-question: {status} {q}")
+    finally:
+        proc.terminate()
+        try:
+            out["exit_code"] = proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+            raise AssertionError("app server did not exit on SIGTERM")
+        out["seconds"] = time.monotonic() - t0
+        with open(log_path, "rb") as fh:
+            out["log_tail"] = fh.read().decode(
+                "utf-8", "replace").splitlines()[-8:]
+        if sys.exc_info()[0] is not None:      # failing: show the server
+            print("\n".join(out["log_tail"]), file=sys.stderr, flush=True)
+    return out
+
+
+# The question lanes' calls whose prompt carries the session's document
+# head (build_interview_prompt leaves it out of the fast tier's prompt).
+FULL_TIER_CALLS = ("question", "question_deep")
+
+
+def _second_question_path(q2, chunk_launches, cache_hits, earlier_calls,
+                          calls) -> dict:
+    """Hold the second question's model work to the app's path.
+
+    Its calls resume a cached prompt head, through the paged chunk
+    attention (#3), when the prompt shares a full page with a prompt that
+    dv-fast already ran: the full tier's prompt shares the document head
+    with any earlier full-tier prompt of the session.  The fast tier's
+    prompt has no document, and the full tier runs only when the app
+    refuses the fast tier's text.  That refusal depends on the weights
+    and the draws: trained weights give questions the app takes, and even
+    random text with a "?" in it passes ``parse_question_response``'s
+    plain-text rule; then the question needs no resume.  So: every
+    prefix-cache hit of dv-fast ran #3 and #3 ran for nothing else (no
+    prompt here is long enough for the interleaved prefill), a full-tier
+    call after an earlier one hit the cache, and without a full-tier call
+    the fast tier gave the question."""
+    tiers = [c["call_type"] for c in calls]
+    full = any(t in FULL_TIER_CALLS for t in tiers)
+    out = {"prefetched": bool(q2.get("prefetched")),
+           "follow_up": bool(q2.get("is_follow_up")),
+           "tier": q2.get("question_generation_tier"), "calls": tiers,
+           "prefix_cache_hits": cache_hits, "chunk_launches": chunk_launches}
+    if (cache_hits > 0) != (chunk_launches > 0):
+        raise AssertionError(f"app: the second question's prefix-cache hits "
+                             f"and paged chunk launches disagree ({out})")
+    if full and any(c["call_type"] in FULL_TIER_CALLS
+                    for c in earlier_calls) and cache_hits <= 0:
+        raise AssertionError(f"app: the second question's full tier did not "
+                             f"resume the session's document head ({out})")
+    if not full and out["tier"] != "fast":
+        raise AssertionError(f"app: the second question ran no full tier "
+                             f"and the fast tier did not give it ({out})")
+    return out
+
+
+def phase_app() -> dict:
+    """The interview app on the card, through the port's entry points.
+
+    In process: ``create_app`` (engine mode on CUDA: dv-fast on the
+    question lanes, dv-base on the report lanes, both on random weights
+    from the seed (``APP_SETTINGS``), the app's defaults of 32
+    slots, 1,024 pages of 64, chunked prefill, K = 8 / 16, warmup on) and
+    its test client: login, a session, a reference document of several KB
+    (chunked and summarised), the interview assistant (which embeds the
+    chunks), next-question, submit-answer and a second next-question,
+    generate-report polled to completion, the report, a docx export,
+    ``/api/status`` and ``/api/metrics`` (admin).  Every response must have
+    the status the JAX app's tests expect, the report job must complete,
+    and the flash forward (#2), the decode step (#1) and the paged chunk
+    attention (#3) must each have been launched by the HTTP traffic (#3
+    at least by the report's second and third drafts, which resume the
+    first one's prompt); the second question's model work (in its
+    request, or in the background prefetch the app starts after
+    submit-answer) must follow the app's path
+    (:func:`_second_question_path`).
+    Each request's latency and launches, the AI calls' lanes and models
+    and each answer's ``ai_generated`` are reported.  Then the real entry
+    point, ``python -m deepvision_tpu_torch.web.server``, answers a
+    question over HTTP (:func:`_app_server_step`)."""
+    from deepvision_tpu_torch.engine.client import (
+        ModelGateway,
+        configure_gateway,
+    )
+    from deepvision_tpu_torch.engine.kernels.flash_attention import (
+        flash_attention,
+    )
+    from deepvision_tpu_torch.engine.kernels.paged_attention import (
+        paged_attention_update,
+    )
+    from deepvision_tpu_torch.engine.kernels.paged_chunk import (
+        paged_chunk_attention,
+    )
+    from deepvision_tpu_torch.web.server import create_app
+
+    counters = {"flash_fwd": flash_attention,
+                "paged_decode_update": paged_attention_update,
+                "paged_chunk": paged_chunk_attention}
+
+    def launches():
+        return {k: fn.launches for k, fn in counters.items()}
+
+    def delta(before):
+        now = launches()
+        return {k: now[k] - before[k] for k in now}
+
+    t0 = time.monotonic()
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="dv-app-")
+    try:
+        app = create_app(data_dir=os.path.join(tmp, "data"), overrides={
+            **APP_SETTINGS, "QUESTION_FAST_MAX_TOKENS": APP_MAX_TOKENS})
+        state = app.state
+        gw = state.gateway
+        boot_fg = time.monotonic() - t0
+        for eng in gw.engines.values():
+            eng.start()              # the report-only engine's warmup too
+        boot = {"foreground_s": boot_fg, "all_s": time.monotonic() - t0}
+        try:
+            lanes = {k: v.engine for k, v in gw.lanes.items()}
+            want = {"question": "dv-fast", "question_fast": "dv-fast",
+                    "report_draft": "dv-base", "report_review": "dv-base"}
+            if any(lanes[k] != v for k, v in want.items()):
+                raise AssertionError(f"app lane models {lanes}")
+            steps = {m: e.cfg.decode_steps_per_call
+                     for m, e in gw.engines.items()}
+            cfgs = {m: (e.cfg.max_slots, e.cfg.num_pages, e.cfg.page_size,
+                        e.cfg.chunked_prefill, e.cfg.warmup,
+                        e.cfg.checkpoint_dir, e.cfg.seed)
+                    for m, e in gw.engines.items()}
+            want_cfg = (32, 1024, 64, True, True, os.devnull, SEED)
+            if steps != {"dv-fast": 8, "dv-base": 16} or any(
+                    c != want_cfg for c in cfgs.values()):
+                raise AssertionError(f"app engine settings {steps} {cfgs}")
+            gw.lanes = {k: v.replace(max_tokens=min(v.max_tokens,
+                                                    APP_MAX_TOKENS))
+                        for k, v in gw.lanes.items()}
+            ai_calls = []
+            inner = gw.call_model
+
+            def recording(prompt, call_type="question", *,
+                          return_meta=False, **kw):
+                try:
+                    text, meta = inner(prompt, call_type, return_meta=True,
+                                       **kw)
+                except Exception as e:
+                    ai_calls.append({"call_type": call_type,
+                                     "failure_reason": str(e)[:200]})
+                    raise
+                ai_calls.append({k: meta.get(k) for k in (
+                    "call_type", "lane", "model", "prompt_tokens",
+                    "completion_tokens", "total_ms", "finish_reason",
+                    "prompt_shrunk", "failure_reason")})
+                # the mark that lets the question parser's plain-text rule
+                # take random text as a question
+                ai_calls[-1]["question_mark"] = "?" in text or "？" in text
+                return (text, meta) if return_meta else text
+
+            gw.call_model = recording
+            user, admin = app.test_client(), app.test_client()
+            requests = []
+
+            def req(client, name, method, path, want, **kw):
+                before = launches()
+                t = time.monotonic()
+                r = client.open(path, method, **kw)
+                ms = (time.monotonic() - t) * 1e3
+                body = r.get_json()
+                requests.append({"name": name, "status": r.status_code,
+                                 "ms": ms, "launches": delta(before)})
+                if r.status_code != want:
+                    raise AssertionError(f"app {name}: {r.status_code} "
+                                         f"{r.text[:300]}")
+                return body
+
+            def settle(name):
+                before = launches()
+                waited = _settle_app_threads()
+                requests.append({"name": name, "status": None, "ms":
+                                 waited * 1e3, "launches": delta(before)})
+
+            for fn in counters.values():
+                fn.launches = 0
+            for client, phone in ((admin, "13800000001"),
+                                  (user, APP_USER_PHONE)):
+                req(client, "send_code", "POST", "/api/auth/sms/send-code",
+                    200, json_body={"phone": phone})
+                who = req(client, "login", "POST", "/api/auth/login/code",
+                          200, json_body={"phone": phone, "code": "666666"})
+            # the admin raises the user to standard (docx exports)
+            req(admin, "set_level", "PUT",
+                f"/api/admin/users/{who['user']['user_id']}/level", 200,
+                json_body={"level": "standard"})
+            sess = req(user, "create_session", "POST", "/api/sessions", 201,
+                       json_body={"topic": "仓储管理系统选型",
+                                  "scenario_id": "product-requirement",
+                                  "interview_mode": "quick",
+                                  "description": "覆盖三个区域仓与一个中心仓"})
+            sid = sess["session_id"]
+            doc = _reference_markdown().encode("utf-8")
+            up = req(user, "upload_document", "POST",
+                     f"/api/sessions/{sid}/documents", 200,
+                     files={"file": ("背景资料.md", doc, "text/markdown")})
+            n_chunks = len(state.sessions.load(sid)["reference_materials"][0]
+                           .get("chunks") or [])
+            if n_chunks < 2:
+                raise AssertionError(f"app: the document gave {n_chunks} "
+                                     f"chunks")
+            req(user, "assistant_chat", "POST",
+                f"/api/sessions/{sid}/interview-assistant-chat", 200,
+                json_body={"message": "仓库盘点差异应该怎么描述？"})
+            answers = {}
+            q1 = req(user, "next_question_1", "POST",
+                     f"/api/sessions/{sid}/next-question", 200, json_body={})
+            answers["question_1"] = q1.get("ai_generated")
+            settle("prefetch_after_question_1")
+            # the second question's model work, from submit-answer (which
+            # starts its prefetch) to the end of that prefetch
+            cache = gw.engines["dv-fast"].scheduler.prefix_cache
+            before_2, hits_0, calls_0 = launches(), cache.hits, len(ai_calls)
+            req(user, "submit_answer", "POST",
+                f"/api/sessions/{sid}/submit-answer", 200, json_body={
+                    "question": q1["question"],
+                    "answer": "我们有三套系统，因为数据分散，例如报表需要手工汇总",
+                    "dimension": q1.get("dimension"),
+                    "options": q1.get("options")})
+            settle("prefetch_after_answer")
+            q2 = req(user, "next_question_2", "POST",
+                     f"/api/sessions/{sid}/next-question", 200, json_body={})
+            answers["question_2"] = q2.get("ai_generated")
+            settle("prefetch_after_question_2")
+            second = _second_question_path(
+                q2, delta(before_2)["paged_chunk"], cache.hits - hits_0,
+                ai_calls[:calls_0], ai_calls[calls_0:])
+            before_rep = launches()
+            req(user, "generate_report", "POST",
+                f"/api/sessions/{sid}/generate-report", 202,
+                json_body={"force": True})
+            t_rep = time.monotonic()
+            polls = 0
+            while True:
+                polls += 1
+                st = req(user, "report_status", "GET",
+                         f"/api/status/report-generation/{sid}", 200)
+                if st["state"] in ("completed", "failed"):
+                    break
+                if time.monotonic() - t_rep > 600:
+                    raise AssertionError(f"app: report job at {st['state']} "
+                                         f"after 600 s")
+                requests.pop()        # keep the first and the last poll
+                time.sleep(0.5)
+            report_s, report_launches = time.monotonic() - t_rep, delta(
+                before_rep)
+            if st["state"] != "completed":
+                raise AssertionError(f"app: report job {st}")
+            answers["report"] = st.get("ai_generated")
+            name = st["report_name"]
+            r = user.get(f"/api/reports/{name}")
+            requests.append({"name": "get_report", "status": r.status_code,
+                             "ms": None, "launches": None})
+            if r.status_code != 200 or not r.data:
+                raise AssertionError(f"app get_report: {r.status_code}")
+            req(user, "export_docx", "POST", f"/api/reports/{name}/exports",
+                201, json_body={"format": "docx"})
+            status = req(user, "status", "GET", "/api/status", 200)
+            metrics = req(admin, "metrics", "GET", "/api/metrics", 200)
+            total = launches()
+            if min(total.values()) <= 0:
+                raise AssertionError(f"app: a kernel was not launched by the "
+                                     f"HTTP traffic {total}")
+            if set(status["engine"]) != {"dv-fast", "dv-base"}:
+                raise AssertionError(f"app /api/status engines "
+                                     f"{set(status['engine'])}")
+            out = {
+                "phase": "app", "boot": boot, "lanes": lanes,
+                "decode_steps_per_call": steps, "max_tokens": APP_MAX_TOKENS,
+                "document": {"bytes": len(doc), "chunks": n_chunks,
+                             "summarised": bool(up["document"].get(
+                                 "summary"))},
+                "requests": requests, "ai_calls": ai_calls,
+                "ai_generated": answers, "second_question": second,
+                "report": {"state": st["state"], "seconds": report_s,
+                           "polls": polls, "bytes": len(r.data),
+                           "launches": report_launches},
+                "metrics_ai_calls": metrics.get("ai_calls"),
+                "launches": total,
+            }
+        finally:
+            _settle_app_threads()
+            state.shutdown()
+            # the app registers its gateway process-wide; drop it, or its
+            # engines' weights and page pools stay on the card for the
+            # phases after this one
+            configure_gateway(ModelGateway(mode="template"))
+        del app, state, gw
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["server"] = _app_server_step(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.monotonic() - t0
+    emit(out)
+    return out
+
+
 class LlamaConfig:
     """The attributes of a HuggingFace ``LlamaConfig`` that the importer
     reads, so that the phase runs without ``transformers`` installed."""
@@ -2313,6 +2778,7 @@ def main() -> int:
     phase_gateway_int8(gateway)
     phase_engine_w8(eng)
     phase_gateway_w8(gateway)
+    app = phase_app()
     phase_hf_import()
     train = phase_train()
     # each kernel's launches come from the phase whose path it is
@@ -2341,7 +2807,10 @@ def main() -> int:
          "device_ms": main_cases[name].get("device_ms"),
          "splits": main_cases[name].get("splits"),
          "ms_one_split": main_cases[name].get("ms_one_split"),
-         "device_ms_one_split": main_cases[name].get("device_ms_one_split")}
+         "device_ms_one_split": main_cases[name].get("device_ms_one_split"),
+         # the launches of phase app's HTTP traffic, for the kernels of
+         # its path
+         "app_launches": app["launches"].get(name)}
         for name in KERNELS]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["name"],
                                  "count": dev["count"]}})

@@ -10,10 +10,15 @@ started in the foreground and report-only engines warmed in a background
 thread).  Its engines run on ``device`` (CUDA unless the caller asks for
 the CPU).
 
-Settings come from ``overrides``, then the process environment, then the
-app's defaults for these keys.  The app's ``.env`` files and its admin
-config centre are not read here, and the app's metrics hook is the
-caller's to set (``gateway.metrics_hook``).
+Settings come from a settings object with the app's typed reads
+(``get_str``/``get_int``/``get_bool``/``get_list``): the app passes its
+``ConfigResolver`` (``deepvision_tpu_torch/web/env.py``), so runtime
+overrides, the admin config centre's restored overrides, ``.env`` files,
+the process environment and ``web/config.py``'s defaults all reach the
+engines, and its ``MetricsCollector.record_ai_call`` as ``metrics_hook``.
+A plain dict is read as runtime overrides of a fresh ``ConfigResolver``:
+the overrides, then the process environment, then ``web/config.py``'s
+defaults (no ``.env`` file is loaded).
 """
 
 from __future__ import annotations
@@ -27,39 +32,11 @@ from deepvision_tpu_torch.engine.engine import EngineConfig, LLMEngine
 from deepvision_tpu_torch.engine.lanes import DEFAULT_LANES
 from deepvision_tpu_torch.engine.router import EngineRouter
 from deepvision_tpu_torch.engine.service import RemoteEngine
+from deepvision_tpu_torch.web.env import ConfigResolver
 
 RESOURCES = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__)))), "resources")
-
-# The app's defaults for the keys read here (deepvision_tpu/web/config.py);
-# they win over the fallbacks written at each read, as in the app.
-APP_DEFAULTS = {
-    "ENABLE_AI": True,
-    "AI_MODE": "template",
-    "QUESTION_MODEL_NAME": "auto",
-    "REPORT_MODEL_NAME": "auto",
-    "REPORT_DRAFT_MODEL_NAME": "auto",
-    "REPORT_REVIEW_MODEL_NAME": "auto",
-    "ENGINE_TOKENIZER": "auto",
-    "ENGINE_CHECKPOINT_DIR": "",
-    "ENGINE_MAX_SLOTS": 32,
-    "ENGINE_NUM_PAGES": 1024,
-    "ENGINE_PAGE_SIZE": 64,
-    "ENGINE_MAX_PAGES_PER_SEQ": 32,
-    "ENGINE_TP": 1,
-    "ENGINE_REPLICAS": 1,
-    "ENGINE_REMOTE_URLS": "",
-    "ENGINE_DECODE_STEPS_PER_CALL": 8,
-    "ENGINE_REPORT_DECODE_STEPS": 16,
-    "ENGINE_PIPELINE_DECODE": False,
-    "ENGINE_MAX_CHAINED_DECODES": 4,
-    "ENGINE_CHUNKED_PREFILL": True,
-    "ENGINE_PREFILL_CHUNK_SIZE": 256,
-    "ENGINE_QUANTIZE": "",
-    "ENGINE_KV_QUANTIZE": "",
-    "ENGINE_FUSE_PROJECTIONS": False,
-}
 
 # each trained preset pairs with the vocab it was trained on
 TOKENIZER_BY_MODEL = {
@@ -74,66 +51,26 @@ FAST_PREF = ("dv-fast", "dv-base", "dv-mini")
 QUALITY_PREF = ("dv-base", "dv-fast", "dv-mini")
 
 
-class Settings:
-    """Typed reads over ``overrides``, then ``os.environ``, then
-    :data:`APP_DEFAULTS`, with the app's casting rules (a value that does
-    not cast is returned as it is)."""
-
-    def __init__(self, overrides: Optional[dict] = None):
-        self.overrides = dict(overrides or {})
-
-    def get(self, key: str, default=None, cast=None):
-        if key in self.overrides:
-            return self._cast(self.overrides[key], cast)
-        if key in os.environ:
-            return self._cast(os.environ[key], cast)
-        if key in APP_DEFAULTS:
-            return self._cast(APP_DEFAULTS[key], cast)
-        return default
-
-    @staticmethod
-    def _cast(val, cast):
-        if cast is None:
-            return val
-        if cast is bool:
-            if isinstance(val, bool):
-                return val
-            return str(val).strip().lower() in ("1", "true", "yes", "on")
-        try:
-            return cast(val)
-        except (TypeError, ValueError):
-            return val
-
-    def get_str(self, key: str, default: str = "") -> str:
-        v = self.get(key, default)
-        return "" if v is None else str(v)
-
-    def get_int(self, key: str, default: int = 0) -> int:
-        return self.get(key, default, cast=int)
-
-    def get_bool(self, key: str, default: bool = False) -> bool:
-        return self._cast(self.get(key, default), bool)
-
-    def get_list(self, key: str, default=None) -> list:
-        v = self.get(key, default or [])
-        if isinstance(v, list):
-            return v
-        return [s.strip() for s in str(v).split(",") if s.strip()]
-
-
 def default_checkpoint(model_name: str) -> Optional[str]:
     """The in-repo trained checkpoint of ``model_name``, if present."""
     p = os.path.join(RESOURCES, "checkpoints", f"{model_name}.npz")
     return p if os.path.isfile(p) else None
 
 
-def build_gateway(overrides: Optional[dict] = None, *,
-                  device: str = "cuda") -> ModelGateway:
+def build_gateway(settings=None, *, device: str = "cuda",
+                  metrics_hook=None) -> ModelGateway:
     """The app's :class:`ModelGateway` from its settings (``AI_MODE``
     ``template`` | ``engine`` | ``off``); in engine mode its engines are
     built on ``device`` and started before this returns (report-only
-    engines keep warming in a background thread)."""
-    cfg = Settings(overrides)
+    engines keep warming in a background thread).  ``settings`` is the
+    app's ``ConfigResolver`` (or an object with its typed reads) or a
+    dict of overrides."""
+    if hasattr(settings, "get_str"):
+        cfg = settings
+    else:
+        cfg = ConfigResolver()
+        for key, value in (settings or {}).items():
+            cfg.set_runtime(key, value)
     mode = cfg.get_str("AI_MODE", "template")
     if not cfg.get_bool("ENABLE_AI", True):
         mode = "off"
@@ -231,4 +168,4 @@ def build_gateway(overrides: Optional[dict] = None, *,
             for name, profile in DEFAULT_LANES.items()
         }
     return ModelGateway(mode=mode, engines=engines, lanes=lanes,
-                        breaker=CircuitBreaker())
+                        breaker=CircuitBreaker(), metrics_hook=metrics_hook)

@@ -121,13 +121,75 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         "assert not bad, bad\n"
         "for m in ('deepvision_tpu_torch.engine.engine',\n"
         "          'deepvision_tpu_torch.engine.training',\n"
-        "          'deepvision_tpu_torch.train_model'):\n"
+        "          'deepvision_tpu_torch.train_model',\n"
+        "          'deepvision_tpu_torch.web.server'):\n"
         "    assert m in sys.modules, m\n"
     )
     env = dict(os.environ, PYTHONPATH=ROOT)
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def _jax_package_imports(path):
+    """(line, module) of every ``import``/``from`` of ``jax`` or
+    ``deepvision_tpu`` (or a submodule) in ``path``, at any depth of the
+    file: module level, function bodies, conditional blocks."""
+    import ast
+
+    with open(path, encoding="utf-8") as fh:
+        tree = ast.parse(fh.read(), filename=path)
+    found = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        found += [(node.lineno, n) for n in names
+                  if n.split(".")[0] in ("jax", "deepvision_tpu")]
+    return found
+
+
+def test_no_import_of_jax_or_the_jax_package_at_any_depth():
+    """An ``ast`` scan of every ``.py`` of the port and of
+    ``chip_smoke.py``: the lazy imports inside function bodies, which
+    importing the modules does not run, are read too."""
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for root, _, names in os.walk(os.path.join(ROOT, "deepvision_tpu_torch")):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    assert len(files) > 60
+    bad = {os.path.relpath(f, ROOT): _jax_package_imports(f) for f in files}
+    assert not {f: v for f, v in bad.items() if v}
+    # the scan sees imports in function bodies
+    assert _jax_package_imports(os.path.join(
+        ROOT, "deepvision_tpu", "web", "runtime", "documents.py"))
+
+
+def test_port_server_help_runs_with_jax_blocked():
+    """``python -m deepvision_tpu_torch.web.server --help`` exits 0 with
+    ``jax`` unimportable (a ``sys.modules['jax'] = None`` shim)."""
+    code = (
+        "import runpy, sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.argv = ['deepvision_tpu_torch.web.server', '--help']\n"
+        "try:\n"
+        "    runpy.run_module('deepvision_tpu_torch.web.server',\n"
+        "                     run_name='__main__', alter_sys=True)\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n"
+        "else:\n"
+        "    raise AssertionError('--help did not exit')\n"
+        "bad = [m for m in sys.modules if m == 'deepvision_tpu'\n"
+        "       or m.startswith(('deepvision_tpu.', 'jax.'))]\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "--device" in proc.stdout and "--data-dir" in proc.stdout
 
 
 def test_engine_raises_without_cuda_unless_asked_for_cpu():
