@@ -47,12 +47,20 @@ Phases, each printing one JSON line with its own seconds:
    have been launched by the served traffic, and the last-position logits
    of a chunked prefill from 0 and of a resume from a page boundary must
    agree with ``forward_train``;
-6. paged_api — the kernels package's public paged attention
+6. engine_prefix_trained — phase ``engine_prefix`` again on the trained
+   ``resources/checkpoints/dv-base.npz``, with the readings that classify
+   ROADMAP §3 fault 1: the first token where session 0's turn 3 resumed
+   through the prefix cache and its cold rerun differ, the cold context's
+   top-2 logit gap there against the logits' error, and each layer's
+   attention output at the resumed positions on the warm path (#3 over the
+   pages) and the cold one (#2) against bound A, on their own residual
+   streams and on the same q/k/v; the verdict is reported;
+7. paged_api — the kernels package's public paged attention
    (``paged_attention``) and ``paged_attention_update(grid_mode="bkv")``
    over 16 decode steps of dv-base's 12 layers at the report lane's shape:
    the two must agree bit for bit, match the grid-"b" kernel, and launch
    once per layer and step;
-7. gateway — the app's main path: ``build_gateway`` (dv-fast on the
+8. gateway — the app's main path: ``build_gateway`` (dv-fast on the
    question lanes, dv-base on the report lanes, the app's other defaults)
    -> ``call_model`` for a question, a report draft and the session's
    follow-up question (resumed through the prefix cache); every text must
@@ -60,10 +68,10 @@ Phases, each printing one JSON line with its own seconds:
    flash, decode and chunk kernels must have run; then ``embed_texts`` on
    20 document chunks and a query: unit vectors ``[21, d_model]`` through
    the flash kernel;
-8. gateway_int8 — the report draft again through a gateway with
+9. gateway_int8 — the report draft again through a gateway with
    ``ENGINE_KV_QUANTIZE=int8``: it must parse; the calibrated scales and
    the first token that differs from the bf16 run are reported;
-9. engine_w8 — phase ``engine``'s traffic under three serving settings:
+10. engine_w8 — phase ``engine``'s traffic under three serving settings:
    fused projections; int8 weights, fused; int8, fused and pipelined (4
    chained decode calls).  Every output must parse, the int8 block
    weights must take at most 0.55x the bf16 bytes, and prompt 0 replayed
@@ -74,11 +82,11 @@ Phases, each printing one JSON line with its own seconds:
    first token that differs from phase ``engine`` are reported.  It first
    holds ``qdot``'s int8 form (a bf16 GEMM with a float32 output) against
    the float32 product on the card;
-10. gateway_w8 — ``build_gateway`` with ``ENGINE_QUANTIZE=int8``,
+11. gateway_w8 — ``build_gateway`` with ``ENGINE_QUANTIZE=int8``,
    ``ENGINE_FUSE_PROJECTIONS=1`` and ``ENGINE_PIPELINE_DECODE=1``: a
    question and the report draft must parse, ``embed_texts`` must give
    None (as in the JAX app);
-11. app     — the interview app on the card through its entry points:
+12. app     — the interview app on the card through its entry points:
    ``create_app`` in engine mode (dv-fast on the question lanes, dv-base
    on the report lanes, random weights from the seed, the app's
    defaults, warmup on; lanes capped at 256 new tokens) and its test client: login, a session, a reference
@@ -95,12 +103,21 @@ Phases, each printing one JSON line with its own seconds:
    ``python -m deepvision_tpu_torch.web.server`` in a subprocess on a free
    port of 127.0.0.1 answers a question over real HTTP and exits when
    stopped;
-12. hf_import — an HF-named state dict of seeded random tensors (2-layer
+13. ops     — the engine-driven ops and eval CLIs through their own
+   ``main``: ``python -m deepvision_tpu_torch.report_generator`` (template
+   readiness in a subprocess, then ``generate --all --workers 2`` in
+   engine mode on its default dv-1b at full width, random weights, lanes
+   capped at 256 new tokens: both reports saved and bound, the reports/min
+   line), ``eval_generation_quality`` (trained dv-fast question lane and
+   dv-base report lane, 8 generations each) and ``eval_quant_quality``
+   (trained dv-base, bf16 against int8 weights, 2 prompts); #1, #2 and #3
+   must each have been launched;
+14. hf_import — an HF-named state dict of seeded random tensors (2-layer
    Llama shape, head_dim 128, GQA, untied ``lm_head``) through the
    importer into ``LLMEngine(quantize="int8")``: 16 greedy tokens, and the
    kernel-path prefill logits against the plain float32 forward of the
    same int8 params;
-13. train   — dv-base fine-tuning through the port's ``Trainer`` at its
+15. train   — dv-base fine-tuning through the port's ``Trainer`` at its
    full width and depth: float32 params (random, seed 0), bf16
    activations, batch 8 x 2,049 tokens of seeded interview text through
    the dv_bpe_16k tokenizer, ``train_model.py``'s optimizer chain, the
@@ -109,12 +126,13 @@ Phases, each printing one JSON line with its own seconds:
    a step, one step at B=2 must agree with the plain attention through
    autograd (loss and every gradient leaf), and ``save_npz`` ->
    ``load_or_init`` must give back the same bits; one step is profiled;
-14. the card's name and power limit again, then the ``kernels`` line the
+16. the card's name and power limit again, then the ``kernels`` line the
    benchmark contract reads (seven kernels, each with its achieved
    TFLOP/s, whether it computes on the tensor cores or in fp32 on the
    CUDA cores and, for the kernels that split columns, the split count
-   and the time unsplit, and phase ``app``'s launches of #1-#3);
-15. shutdown, then the last line ``{"ok": true, "device": {...}}``.
+   and the time unsplit, and phases ``app``'s and ``ops``' launches of
+   #1-#3), after the whole run's seconds;
+17. shutdown, then the last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the script exits non-zero without the last
 line.  Without CUDA it exits 2 before any phase.
@@ -123,9 +141,11 @@ line.  Without CUDA it exits 2 before any phase.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import gc
 import glob
 import importlib
+import io
 import json
 import math
 import os
@@ -1258,7 +1278,12 @@ def _chunked_logits(model_lib, params, cfg, ids, head_n):
     return logits[0]
 
 
-def phase_engine_prefix() -> dict:
+def phase_engine_prefix(checkpoint=None, phase="engine_prefix",
+                        readings=None) -> dict:
+    """Phase ``engine_prefix`` on random weights from the seed, or on the
+    ``.npz`` at ``checkpoint``; ``readings(eng, sessions, warm, cold,
+    logit_err)``, when given, runs before the engine shuts down and its
+    dict is reported under ``"readings"``."""
     from deepvision_tpu_torch.engine import model as model_lib
     from deepvision_tpu_torch.engine.engine import EngineConfig, LLMEngine
     from deepvision_tpu_torch.engine.kernels.flash_attention import (
@@ -1275,10 +1300,12 @@ def phase_engine_prefix() -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     mem_before = torch.cuda.memory_allocated()
+    if checkpoint is not None and not os.path.isfile(checkpoint):
+        raise AssertionError(f"{phase}: no checkpoint at {checkpoint}")
     t0 = time.monotonic()
     tok_path = os.path.join(ROOT, "resources", "tokenizer", "dv_bpe_16k.json")
     eng = LLMEngine(EngineConfig(
-        model="dv-base", tokenizer=tok_path, checkpoint_dir=None,
+        model="dv-base", tokenizer=tok_path, checkpoint_dir=checkpoint,
         device="cuda", max_slots=8, num_pages=1024, page_size=64,
         max_pages_per_seq=32, decode_steps_per_call=16,
         chunked_prefill=True, prefill_chunk_size=256, json_dfa=True,
@@ -1361,8 +1388,10 @@ def phase_engine_prefix() -> dict:
                       + meta_g["completion_tokens"])
         stats = eng.stats()
         out = {
-            "phase": "engine_prefix", "model": cfg.name,
-            "weights": f"random (seed {SEED})", "chunked_prefill": True,
+            "phase": phase, "model": cfg.name,
+            "weights": (f"random (seed {SEED})" if checkpoint is None else
+                        os.path.relpath(checkpoint, ROOT)),
+            "chunked_prefill": True,
             "prefill_chunk_size": 256, "mem_before_boot_gb": mem_before / 1e9,
             "boot_s": t_boot, "warmup_s": t_warm,
             "requests": len(outputs) + 1, "json_parsed": len(outputs) + 1,
@@ -1381,11 +1410,235 @@ def phase_engine_prefix() -> dict:
             "logit_err": logit_err, "logit_tol": logit_tol,
             "resume_head_tokens": head_n,
         }
+        if readings is not None:
+            out["readings"] = readings(eng, sessions, warm, cold.token_ids,
+                                       logit_err)
     finally:
         eng.shutdown()
     out["seconds"] = time.monotonic() - t0
     emit(out)
     return out
+
+
+# Bound A (ROADMAP §3 A): two bf16 roundings of one fp32 value may land one
+# bf16 step apart, 2^-7 of the output's largest magnitude (or of 1).
+BOUND_A_REL = 2.0 ** -7
+TRAINED_BASE = os.path.join(ROOT, "resources", "checkpoints", "dv-base.npz")
+
+
+def _bound_a(got, want) -> dict:
+    err = (got.float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item()
+    tol = BOUND_A_REL * max(scale, 1.0)
+    return {"max_abs_diff": err, "max_abs_out": scale, "bound_a": tol,
+            "within": err <= tol}
+
+
+def _prefix_layer_readings(params, cfg, ids, head_n, dev="cuda") -> list:
+    """Each layer's attention output at positions ``head_n..n-1`` of
+    ``ids`` on the two paths of a prefix resume, built from the model's own
+    functions.  Cold: ``forward_prefill``'s flash attention (#2) over the
+    whole prompt.  Warm: the head's K/V written by ``forward_prefill`` over
+    the head, the rest as ``forward_prefill_chunk`` runs it, the paged
+    chunk attention (#3) over the pages in chunks of 256.  ``stream``: each
+    path on its own residual stream, as the engine runs them;
+    ``same_input``: #3 given the cold path's q/k/v of that layer, so that
+    only the two kernels differ; ``cold_vs_f32`` and ``warm_vs_f32``: each
+    path's distance from the same layer of a float32 forward (the same
+    weights, float32 activations, the plain attention), the size of the
+    bf16 paths' own rounding."""
+    from deepvision_tpu_torch.engine import model as m
+    from deepvision_tpu_torch.engine.kernels.flash_attention import (
+        flash_attention,
+        flash_attention_reference,
+    )
+    from deepvision_tpu_torch.engine.kernels.paged_chunk import (
+        paged_chunk_attention,
+    )
+    from deepvision_tpu_torch.engine.kv_cache import (
+        CacheConfig,
+        init_cache,
+        write_chunk_tokens,
+        write_prefill_pages,
+    )
+
+    P, C, HD, L = 64, 256, cfg.head_dim, cfg.n_layers
+    n = len(ids)
+    S = -(-n // P) * P
+    MP = S // P
+
+    def i32(v):
+        return torch.tensor(v, dtype=torch.int32, device=dev)
+
+    toks = torch.zeros(1, S, dtype=torch.int32, device=dev)
+    toks[0, :n] = i32(ids)
+    lens = i32([n])
+    bt = torch.arange(1, MP + 1, dtype=torch.int32, device=dev)[None]
+    cache_cfg = CacheConfig(num_pages=MP + 1, page_size=P,
+                            max_pages_per_seq=MP)
+
+    def qkv(x, blk, rope, T):
+        q, k, v = m._qkv_proj(m.rms_norm(x, blk["ln1"], cfg.rms_eps), blk,
+                              cfg, x.dtype)
+        return (m.apply_rope(q.reshape(1, T, -1, HD), rope),
+                m.apply_rope(k.reshape(1, T, -1, HD), rope),
+                v.reshape(1, T, -1, HD))
+
+    def residual(x, attn, blk, T):
+        x = x + m.qdot(attn.reshape(1, T, -1), blk["wo"],
+                       torch.float32).to(x.dtype)
+        return x + m._mlp(m.rms_norm(x, blk["ln2"], cfg.rms_eps), blk,
+                          x.dtype)
+
+    def chunks():
+        for start in range(head_n, n, C):
+            yield start, min(start + C, n) - start
+
+    with torch.no_grad():
+        rope = m.rope_tables(torch.arange(S, device=dev), HD, cfg.rope_theta)
+        ref = []
+        x = m._scaled_embed(params, toks, cfg, torch.float32)
+        for i in range(L):
+            blk = m._layer(params, i)
+            q, k, v = qkv(x, blk, rope, S)
+            attn = flash_attention_reference(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                lens).transpose(1, 2)
+            ref.append(attn[0, head_n:n])
+            x = residual(x, attn, blk, S)
+
+        cold, cold_qkv = [], []
+        x = m._scaled_embed(params, toks, cfg)
+        for i in range(L):
+            blk = m._layer(params, i)
+            q, k, v = qkv(x, blk, rope, S)
+            attn = flash_attention(
+                q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
+                v.transpose(1, 2).contiguous(), lens).transpose(1, 2)
+            cold.append(attn[0, head_n:n])
+            cold_qkv.append((q, k, v))
+            x = residual(x, attn, blk, S)
+
+        cache = init_cache(cfg, cache_cfg, device=dev)
+        if head_n:
+            m.forward_prefill(params, cache, toks[:, :head_n], i32([head_n]),
+                              bt[:, : head_n // P], cfg=cfg)
+        warm = [[] for _ in range(L)]
+        for start, rows in chunks():
+            chunk = torch.zeros(1, C, dtype=torch.int32, device=dev)
+            chunk[:, :rows] = toks[:, start:start + rows]
+            positions = start + torch.arange(C, device=dev)[None]
+            rope = m.rope_tables(positions, HD, cfg.rope_theta)
+            x = m._scaled_embed(params, chunk, cfg)
+            for i in range(L):
+                blk = m._layer(params, i)
+                q, k, v = qkv(x, blk, rope, C)
+                write_chunk_tokens(cache["k"][i], cache["v"][i], k, v, bt,
+                                   positions, lens)
+                attn = paged_chunk_attention(
+                    q.contiguous(), cache["k"][i], cache["v"][i], bt,
+                    i32([start]), i32([start + rows]))
+                warm[i].append(attn[0, :rows])
+                x = residual(x, attn, blk, C)
+
+        pools = init_cache(cfg, cache_cfg, device=dev)
+        layers = []
+        for i in range(L):
+            q, k, v = cold_qkv[i]
+            write_prefill_pages(pools["k"][i], pools["v"][i], k, v, bt)
+            same = []
+            for start, rows in chunks():
+                qc = torch.zeros(1, C, *q.shape[2:], dtype=q.dtype, device=dev)
+                qc[:, :rows] = q[:, start:start + rows]
+                same.append(paged_chunk_attention(
+                    qc, pools["k"][i], pools["v"][i], bt, i32([start]),
+                    i32([start + rows]))[0, :rows])
+            warm_i = torch.cat(warm[i])
+            layers.append({
+                "layer": i,
+                "stream": _bound_a(warm_i, cold[i]),
+                "same_input": _bound_a(torch.cat(same), cold[i]),
+                "cold_vs_f32": (cold[i].float() - ref[i]).abs().max().item(),
+                "warm_vs_f32": (warm_i.float() - ref[i]).abs().max().item()})
+    return layers
+
+
+def _top2_gap(eng, ids, tokens, d, max_tokens) -> dict:
+    """The gap between the two largest logits of the grammar-allowed next
+    tokens after ``ids + tokens[:d]`` (the plain float32-softmax forward,
+    the grammar state of ``tokens[:d]``, ``max_tokens - d`` tokens left, as
+    the constrained sampler masks them)."""
+    from deepvision_tpu_torch.engine import model as model_lib
+
+    with torch.no_grad():
+        logits = model_lib.forward_train(
+            eng.runner.params,
+            torch.tensor([list(ids) + list(tokens[:d])], dtype=torch.int32,
+                         device=eng.device), cfg=eng.model_cfg)[0, -1]
+    row = eng.runner._dfa_packed[eng.json_dfa.walk(tokens[:d])]
+    allowed = ((row & 0xFFFF) - 1) >= 0
+    can_close = allowed & ((row >> 16) <= max_tokens - d - 1)
+    if can_close.any():
+        allowed = can_close
+    top = torch.where(allowed, logits, torch.full_like(logits, -1e30)).topk(2)
+    return {"gap": (top.values[0] - top.values[1]).item(),
+            "top2_tokens": top.indices.tolist(),
+            "top2_logits": top.values.tolist()}
+
+
+def _fault1_readings(eng, sessions, warm, cold, logit_err) -> dict:
+    """ROADMAP §3 fault 1 on the engine's weights: the first token where the
+    warm (resumed) and the cold run of session 0's turn 3 differ, the cold
+    context's top-2 logit gap there, each layer's attention output on the
+    two paths (:func:`_prefix_layer_readings`), and the verdict.
+
+    Summation order when, in every layer, #3 and #2 on the same q/k/v are
+    within bound A, and the two paths' own streams are either within bound
+    A or each as close to the float32 forward as the other (the warm
+    path's distance at most twice the cold path's); and a divergent
+    token's top-2 gap is below the logits' error.  A fault otherwise, at
+    the first layer that fails."""
+    ids = sessions[0][2]
+    head_n = len(sessions[0][1]) // 64 * 64
+    layers = _prefix_layer_readings(eng.runner.params, eng.model_cfg, ids,
+                                    head_n, dev=eng.device)
+    d = next((k for k, (a, b) in enumerate(zip(warm, cold)) if a != b), None)
+    gap = None
+    if d is not None:
+        gap = _top2_gap(eng, ids, cold, d, 128)
+        gap.update(warm_token=warm[d], cold_token=cold[d])
+    err = max(logit_err.values())
+    kernels_apart = [r["layer"] for r in layers
+                     if not r["same_input"]["within"]]
+    streams_apart = [r["layer"] for r in layers if not r["stream"]["within"]]
+    paths_unlike = [r["layer"] for r in layers if not (
+        r["stream"]["within"] or r["warm_vs_f32"] <= 2 * r["cold_vs_f32"])]
+    if kernels_apart:
+        verdict = (f"fault: #3 and #2 on the same inputs out of bound A from "
+                   f"layer {kernels_apart[0]}")
+    elif paths_unlike:
+        verdict = (f"fault: the warm path drifts from the float32 forward "
+                   f"from layer {paths_unlike[0]}")
+    elif gap is not None and not gap["gap"] < err:
+        verdict = "fault: the divergent token's top-2 gap >= logit_err"
+    else:
+        verdict = "summation order"
+    return {"first_divergence": d, "top2_at_divergence": gap,
+            "logit_err_max": err, "resume_head_tokens": head_n,
+            "resumed_positions": len(ids) - head_n, "layers": layers,
+            "same_input_out_of_bound_a": kernels_apart,
+            "stream_out_of_bound_a": streams_apart,
+            "warm_drifts_from_f32": paths_unlike, "verdict": verdict}
+
+
+def phase_engine_prefix_trained() -> dict:
+    """Phase ``engine_prefix`` on the trained dv-base checkpoint, with the
+    readings that classify ROADMAP §3 fault 1 (:func:`_fault1_readings`).
+    The verdict is reported, not asserted: a fault is repaired in the
+    port, not here."""
+    return phase_engine_prefix(checkpoint=TRAINED_BASE,
+                               phase="engine_prefix_trained",
+                               readings=_fault1_readings)
 
 
 def phase_paged_api() -> dict:
@@ -2349,6 +2602,225 @@ def phase_app() -> dict:
     return out
 
 
+def _ops_sessions(data_dir) -> list:
+    """The ops CLIs' data dir of ``tests/test_ops_scripts.py`` with both
+    sessions completed, written through the port's store (which stamps
+    its own times); returns their ids."""
+    from deepvision_tpu_torch.web.meta_index import MetaIndex
+    from deepvision_tpu_torch.web.stores import SessionStore
+
+    store = SessionStore(data_dir, MetaIndex(
+        os.path.join(data_dir, "meta_index.sqlite3")))
+    ids = []
+    for i in range(2):
+        ids.append(f"dv-2026010100000{i}-feed000{i}")
+        store.save({
+            "session_id": ids[-1], "topic": f"CLI测试主题{i}",
+            "status": "completed", "instance_scope": "default",
+            "owner_user_id": "u1", "interview_mode": "standard",
+            "scenario_id": "product-requirement",
+            "interview_log": [
+                {"question": "现状如何？", "answer": "高峰期单据积压严重，"
+                 "主要卡在审批环节", "dimension": "d1",
+                 "quality_score": 0.8},
+                {"question": "目标是什么？", "answer": "两小时内处理完",
+                 "dimension": "d1", "quality_score": 0.5},
+            ],
+            "dimensions": {"d1": {"coverage": 1.0}},
+            "reference_materials": [],
+        })
+    return ids
+
+
+def _cli_main(main, argv):
+    """A CLI's ``main(argv)`` in this process; returns its exit code and
+    what it printed."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    return rc or 0, buf.getvalue()
+
+
+# reports/min line of report_generator's ``generate``
+REPORTS_PER_MIN = re.compile(r"^(\d+) reports in ([0-9.]+)s \(([0-9.]+) "
+                             r"reports/min, workers=(\d+), failed=(\d+)\)$")
+
+
+def phase_ops() -> dict:
+    """The port's engine-driven ops and eval CLIs on the card, through
+    their own ``main``.
+
+    1. ``python -m deepvision_tpu_torch.report_generator --ai-mode template
+       readiness --all`` in a subprocess on a data dir of 2 completed
+       sessions: both ready.
+    2. ``report_generator`` ``--ai-mode engine generate --all --status
+       completed --workers 2`` in process: its default engine (dv-1b at
+       full width, random weights from the seed, the byte tokenizer) with
+       every lane capped at ``APP_MAX_TOKENS`` new tokens (random weights
+       never close their JSON; the caps are the CLI's gateway's alone).
+       Exit code 0, both reports saved and bound to their sessions, and the
+       reports/min line.
+    3. ``eval_generation_quality`` on the trained checkpoints: dv-fast on
+       the question lane, dv-base on the report lane, 8 generations each at
+       220 / 512 new tokens: every lane scored, none with an error.
+    4. ``eval_quant_quality`` on the trained dv-base: 2 report prompts,
+       256 new tokens, bf16 against int8 weights; every output parses.
+
+    #1, #2 and #3 must each have been launched in the phase; their
+    launches, each CLI's seconds and results are reported."""
+    from deepvision_tpu_torch import (
+        eval_generation_quality,
+        eval_quant_quality,
+        report_generator,
+    )
+    from deepvision_tpu_torch.engine.kernels.flash_attention import (
+        flash_attention,
+    )
+    from deepvision_tpu_torch.engine.kernels.paged_attention import (
+        paged_attention_update,
+    )
+    from deepvision_tpu_torch.engine.kernels.paged_chunk import (
+        paged_chunk_attention,
+    )
+    from deepvision_tpu_torch.web.meta_index import MetaIndex
+    from deepvision_tpu_torch.web.stores import ReportStore, SessionStore
+
+    counters = {"flash_fwd": flash_attention,
+                "paged_decode_update": paged_attention_update,
+                "paged_chunk": paged_chunk_attention}
+
+    def launches():
+        return {k: fn.launches for k, fn in counters.items()}
+
+    for name in ("dv-fast", "dv-base"):
+        path = os.path.join(ROOT, "resources", "checkpoints", f"{name}.npz")
+        if not os.path.isfile(path):
+            raise AssertionError(f"ops: no checkpoint at {path}")
+    t0 = time.monotonic()
+    gc.collect()
+    torch.cuda.empty_cache()
+    steps = {}
+
+    def step(name, fn):
+        gc.collect()
+        torch.cuda.empty_cache()
+        before, t = launches(), time.monotonic()
+        out = fn()
+        now = launches()
+        steps[name] = {"seconds": time.monotonic() - t,
+                       "launches": {k: now[k] - before[k] for k in now},
+                       **out}
+
+    for fn in counters.values():
+        fn.launches = 0
+    tmp = tempfile.mkdtemp(prefix="dv-ops-")
+    try:
+        data_dir = os.path.join(tmp, "data")
+        os.makedirs(data_dir)
+        sids = _ops_sessions(data_dir)
+
+        def readiness():
+            proc = subprocess.run(
+                [sys.executable, "-m", "deepvision_tpu_torch.report_generator",
+                 "--data-dir", data_dir, "--ai-mode", "template", "readiness",
+                 "--all"], cwd=ROOT, capture_output=True, text=True,
+                timeout=120)
+            lines = proc.stdout.splitlines()
+            if proc.returncode != 0 or lines[-1:] != [f"{len(sids)}/"
+                                                      f"{len(sids)} ready"]:
+                raise AssertionError(f"ops readiness: {proc.returncode} "
+                                     f"{lines} {proc.stderr[-2000:]}")
+            return {"stdout": lines}
+
+        def generate():
+            engines = []
+            real = report_generator._services
+
+            def capped(args):
+                meta, sessions, reports, gw = real(args)
+                gw.lanes = {k: v.replace(max_tokens=min(v.max_tokens,
+                                                        APP_MAX_TOKENS))
+                            for k, v in gw.lanes.items()}
+                engines.extend(gw.engines.values())
+                return meta, sessions, reports, gw
+
+            report_generator._services = capped
+            try:
+                rc, text = _cli_main(report_generator.main, [
+                    "--data-dir", data_dir, "--ai-mode", "engine",
+                    "generate", "--all", "--status", "completed",
+                    "--workers", "2"])
+            finally:
+                report_generator._services = real
+                for eng in engines:
+                    eng.shutdown()
+            lines = text.strip().splitlines()
+            rate = REPORTS_PER_MIN.match(lines[-1]) if lines else None
+            if rc != 0 or rate is None or rate.group(1) != str(len(sids)) \
+                    or rate.group(5) != "0":
+                raise AssertionError(f"ops generate: exit {rc}, {lines}")
+            meta = MetaIndex(os.path.join(data_dir, "meta_index.sqlite3"))
+            sessions, reports = (SessionStore(data_dir, meta),
+                                 ReportStore(data_dir, meta))
+            bound = {}
+            for sid in sids:
+                name = (sessions.load(sid) or {}).get("last_report_name")
+                if not name or not reports.load(name):
+                    raise AssertionError(f"ops generate: {sid} has no saved "
+                                         f"report ({name!r})")
+                bound[sid] = name
+            (eng,) = engines
+            c = eng.model_cfg
+            if (c.name, c.d_model, c.n_layers, c.head_dim,
+                    eng.cfg.checkpoint_dir) != ("dv-1b", 2048, 16, 128, None):
+                raise AssertionError(f"ops generate: engine {c} "
+                                     f"{eng.cfg.checkpoint_dir!r}")
+            return {"model": c.name,
+                    "weights": f"random (seed {eng.cfg.seed})",
+                    "max_tokens": APP_MAX_TOKENS, "stdout": lines,
+                    "reports": bound, "reports_per_min": float(rate.group(3))}
+
+        def eval_quality():
+            rc, text = _cli_main(eval_generation_quality.main, [
+                "--models", "dv-fast:question,dv-base:report", "--n", "8",
+                "--max-question-tokens", "220", "--max-report-tokens", "512"])
+            results = json.loads(text[text.index("{\n"):])
+            lanes = {m: results.get(m) for m in ("dv-fast", "dv-base")}
+            if rc != 0 or any(not isinstance(v, dict) or "error" in v
+                              or "schema_valid_pct" not in v
+                              for v in lanes.values()):
+                raise AssertionError(f"ops eval_generation_quality: exit "
+                                     f"{rc}, {results}")
+            return {"results": results}
+
+        def eval_quant():
+            rc, text = _cli_main(eval_quant_quality.main, [
+                "--model", "dv-base", "--n", "2", "--max-tokens", "256"])
+            line = json.loads(text.strip().splitlines()[-1])
+            ok = (line["bf16_json_ok"], line["int8_json_ok"])
+            if rc != 0 or ok != (2, 2):
+                raise AssertionError(f"ops eval_quant_quality: exit {rc}, "
+                                     f"{line}")
+            return {"result": line}
+
+        step("readiness", readiness)
+        step("generate", generate)
+        step("eval_generation_quality", eval_quality)
+        step("eval_quant_quality", eval_quant)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    total = launches()
+    if min(total.values()) <= 0:
+        raise AssertionError(f"ops: a kernel was not launched by the CLIs "
+                             f"{total}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"phase": "ops", "steps": steps, "launches": total,
+           "seconds": time.monotonic() - t0}
+    emit(out)
+    return out
+
+
 class LlamaConfig:
     """The attributes of a HuggingFace ``LlamaConfig`` that the importer
     reads, so that the phase runs without ``transformers`` installed."""
@@ -2768,19 +3240,23 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t0 = time.monotonic()
     dev = phase_device()
     phase_build()
     main_cases = phase_kernels()
     eng = phase_engine()
     eng_prefix = phase_engine_prefix()
+    phase_engine_prefix_trained()
     api = phase_paged_api()
     gateway = phase_gateway()
     phase_gateway_int8(gateway)
     phase_engine_w8(eng)
     phase_gateway_w8(gateway)
     app = phase_app()
+    ops = phase_ops()
     phase_hf_import()
     train = phase_train()
+    emit({"phase": "all", "seconds": time.monotonic() - t0})
     # each kernel's launches come from the phase whose path it is
     launches = {**eng["launches"],
                 "paged_chunk": eng_prefix["launches"]["paged_chunk"],
@@ -2808,9 +3284,10 @@ def main() -> int:
          "splits": main_cases[name].get("splits"),
          "ms_one_split": main_cases[name].get("ms_one_split"),
          "device_ms_one_split": main_cases[name].get("device_ms_one_split"),
-         # the launches of phase app's HTTP traffic, for the kernels of
-         # its path
-         "app_launches": app["launches"].get(name)}
+         # the launches of phase app's HTTP traffic and of phase ops'
+         # CLIs, for the kernels of their paths
+         "app_launches": app["launches"].get(name),
+         "ops_launches": ops["launches"].get(name)}
         for name in KERNELS]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["name"],
                                  "count": dev["count"]}})
