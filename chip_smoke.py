@@ -116,8 +116,20 @@ Phases, each printing one JSON line with its own seconds:
    Llama shape, head_dim 128, GQA, untied ``lm_head``) through the
    importer into ``LLMEngine(quantize="int8")``: 16 greedy tokens, and the
    kernel-path prefill logits against the plain float32 forward of the
-   same int8 params;
-15. train   — dv-base fine-tuning through the port's ``Trainer`` at its
+   same int8 params; then through the importer CLI's ``write_checkpoint``
+   into an orbax directory, whose engine must give the 16 tokens of a
+   ``.npz`` of the same bf16 params;
+15. orbax   — orbax checkpoints: the compiled zstd decoder
+   (``csrc/zstd_decode.cu``, host code built into the kernel library)
+   byte-equal to the plain one on every frame of the committed JAX-written
+   checkpoint and the committed ``zstandard`` frames, with both decoders'
+   MB/s; that checkpoint read onto the card bit-equal to its ``.npz``
+   twin; the trained dv-base written with the port's ``save_checkpoint``
+   and read back onto the card bit for bit (seconds and MB/s of both); and
+   ``LLMEngine`` booted from that directory giving the greedy tokens of
+   the ``.npz`` boot (2 report prompts, json_mode, 64 tokens), #1 and #2
+   launched (wrapper counts and ``torch.profiler``);
+16. train   — dv-base fine-tuning through the port's ``Trainer`` at its
    full width and depth: float32 params (random, seed 0), bf16
    activations, batch 8 x 2,049 tokens of seeded interview text through
    the dv_bpe_16k tokenizer, ``train_model.py``'s optimizer chain, the
@@ -126,13 +138,13 @@ Phases, each printing one JSON line with its own seconds:
    a step, one step at B=2 must agree with the plain attention through
    autograd (loss and every gradient leaf), and ``save_npz`` ->
    ``load_or_init`` must give back the same bits; one step is profiled;
-16. the card's name and power limit again, then the ``kernels`` line the
+17. the card's name and power limit again, then the ``kernels`` line the
    benchmark contract reads (seven kernels, each with its achieved
    TFLOP/s, whether it computes on the tensor cores or in fp32 on the
    CUDA cores and, for the kernels that split columns, the split count
    and the time unsplit, and phases ``app``'s and ``ops``' launches of
    #1-#3), after the whole run's seconds;
-17. shutdown, then the last line ``{"ok": true, "device": {...}}``.
+18. shutdown, then the last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the script exits non-zero without the last
 line.  Without CUDA it exits 2 before any phase.
@@ -2870,7 +2882,10 @@ def phase_hf_import() -> dict:
     ``LLMEngine(quantize="int8")``: 16 greedy tokens, the int8 untied
     ``lm_head`` among the weights.  The kernel-path prefill logits of the
     prompt and its tokens must agree with the plain float32
-    ``forward_train`` of the same (int8) params."""
+    ``forward_train`` of the same (int8) params.  Then the converted params
+    go through the importer CLI's ``write_checkpoint`` into an orbax
+    directory (bf16), and an engine booted from it must give the 16 greedy
+    tokens of one booted from a ``.npz`` of the same bf16 params."""
     import tempfile
 
     from deepvision_tpu_torch.engine import model as model_lib
@@ -2889,8 +2904,10 @@ def phase_hf_import() -> dict:
     from deepvision_tpu_torch.engine.quant import is_quantized_weight
     from deepvision_tpu_torch.engine.weights import (
         from_numpy_params,
+        round_to_bf16,
         save_npz,
     )
+    from deepvision_tpu_torch.import_hf_checkpoint import write_checkpoint
 
     t0 = time.monotonic()
     hf_cfg = LlamaConfig(
@@ -2902,17 +2919,22 @@ def phase_hf_import() -> dict:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     sd = _hf_state_dict(hf_cfg, gen)
-    params = from_numpy_params(convert_hf_state_dict(sd, cfg), device="cuda")
+    np_params = convert_hf_state_dict(sd, cfg)
+    params = from_numpy_params(np_params, device="cuda")
     del sd
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "hf-llama-2l.npz")
-        save_npz(path, params)
-        del params
-        eng = LLMEngine(EngineConfig(
+
+    def boot(path):
+        return LLMEngine(EngineConfig(
             model=cfg.name, tokenizer="byte", checkpoint_dir=path,
             device="cuda", max_slots=2, num_pages=64, page_size=64,
             max_pages_per_seq=8, decode_steps_per_call=8, quantize="int8",
             json_dfa=False, seed=SEED), model_cfg=cfg)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "hf-llama-2l.npz")
+        save_npz(path, params)
+        del params
+        eng = boot(path)
     try:
         qp = eng.runner.params
         if not is_quantized_weight(qp["lm_head"]):
@@ -2965,6 +2987,252 @@ def phase_hf_import() -> dict:
         }
     finally:
         eng.shutdown()
+    # the importer CLI's write function: its orbax directory (bf16, the
+    # CLI's default) boots an engine with the greedy tokens of one booted
+    # from a .npz of the same bf16 params
+    with tempfile.TemporaryDirectory() as tmp:
+        orbax_dir = os.path.join(tmp, "hf-llama-2l")
+        t = time.monotonic()
+        write_checkpoint(cfg, np_params, orbax_dir)
+        out["orbax_write_s"] = time.monotonic() - t
+        bf16_npz = os.path.join(tmp, "hf-llama-2l-bf16.npz")
+        save_npz(bf16_npz, {
+            k: ({n: round_to_bf16(v) for n, v in leaf.items()}
+                if isinstance(leaf, dict) else round_to_bf16(leaf))
+            for k, leaf in from_numpy_params(np_params,
+                                             device="cpu").items()})
+        runs = {}
+        for name, ckpt in (("orbax", orbax_dir), ("npz_bf16", bf16_npz)):
+            e = boot(ckpt)
+            try:
+                res = e.submit_tokens(prompt, max_tokens=16, temperature=0.0,
+                                      stop_token_ids=[]).wait(300)
+            finally:
+                e.shutdown()
+            if res is None or not res.ok or len(res.token_ids) != 16:
+                raise AssertionError(f"hf_import: {name} boot failed: {res}")
+            runs[name] = res.token_ids
+    if runs["orbax"] != runs["npz_bf16"]:
+        raise AssertionError(f"hf_import: the CLI's orbax directory gives "
+                             f"other tokens than the .npz: {runs}")
+    out["orbax_tokens"] = runs["orbax"]
+    out["seconds"] = time.monotonic() - t0
+    emit(out)
+    return out
+
+
+def _orbax_fixture_frames(path: str) -> list:
+    """Every zstd frame of the committed JAX-written checkpoint: the OCDBT
+    manifest and node bodies of the root store and of ``ocdbt.process_0``
+    (recorded as the plain decoder is handed them) and each zarr chunk."""
+    from deepvision_tpu_torch.engine import zstd as plain_zstd
+    from deepvision_tpu_torch.engine.ocdbt import OcdbtStore
+
+    bodies = []
+
+    def record(data, size=None):
+        bodies.append(bytes(data))
+        return plain_zstd.decompress(data, size)
+
+    chunks = []
+    for root in (path, os.path.join(path, "ocdbt.process_0")):
+        store = OcdbtStore(root, record)
+        chunks += [store.read(k) for k in store.keys()
+                   if not k.endswith(".zarray")]
+    return bodies + chunks
+
+
+def _decode_rate(decode, frames, sizes, repeats: int) -> float:
+    """MB/s (decoded bytes) of ``decode(frame, size)`` over ``frames``,
+    host clock, ``repeats`` passes."""
+    t0 = time.monotonic()
+    for _ in range(repeats):
+        for f, n in zip(frames, sizes):
+            decode(f, n)
+    return repeats * sum(sizes) / (time.monotonic() - t0) / 1e6
+
+
+def _greedy_report_tokens(checkpoint_dir, prompts, profile_it=False):
+    """Boot ``LLMEngine`` on dv-base from ``checkpoint_dir`` and decode 64
+    greedy json_mode tokens for each prompt, one at a time.  Returns the
+    token ids, the boot seconds, the wrappers' launches of #1 and #2 and,
+    with ``profile_it``, the profiler's count of their CUDA kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from deepvision_tpu_torch.engine.engine import EngineConfig, LLMEngine
+    from deepvision_tpu_torch.engine.kernels.flash_attention import (
+        flash_attention,
+    )
+    from deepvision_tpu_torch.engine.kernels.paged_attention import (
+        paged_attention_update,
+    )
+
+    tok_path = os.path.join(ROOT, "resources", "tokenizer", "dv_bpe_16k.json")
+    t0 = time.monotonic()
+    eng = LLMEngine(EngineConfig(
+        model="dv-base", tokenizer=tok_path, checkpoint_dir=checkpoint_dir,
+        device="cuda", max_slots=2, num_pages=64, page_size=64,
+        max_pages_per_seq=16, decode_steps_per_call=16,
+        chunked_prefill=False, json_dfa=True, warmup=False, seed=SEED))
+    boot_s = time.monotonic() - t0
+    try:
+        flash_attention.launches = 0
+        paged_attention_update.launches = 0
+        ctx = (profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+               if profile_it else contextlib.nullcontext())
+        tokens = []
+        with ctx as prof:
+            for p in prompts:
+                res = eng.submit_tokens(eng.tokenizer.encode(p),
+                                        max_tokens=64, temperature=0.0,
+                                        json_mode=True).wait(600)
+                if res is None or not res.ok:
+                    raise AssertionError(f"orbax: generation failed: {res}")
+                tokens.append(res.token_ids)
+            torch.cuda.synchronize()
+        launches = {"flash_fwd": flash_attention.launches,
+                    "paged_decode_update": paged_attention_update.launches}
+        profiled = None
+        if profile_it:
+            profiled = {"flash_fwd": 0, "paged_decode_update": 0}
+            for e in prof.key_averages():
+                if e.device_type != DeviceType.CUDA:
+                    continue
+                if "flash_fwd_tc_kernel" in e.key:
+                    profiled["flash_fwd"] += e.count
+                elif "paged_decode_kernel" in e.key:
+                    profiled["paged_decode_update"] += e.count
+    finally:
+        eng.shutdown()
+    return tokens, boot_s, launches, profiled
+
+
+def phase_orbax() -> dict:
+    """Orbax checkpoints on the card: (a) the compiled zstd decoder
+    (``csrc/zstd_decode.cu``, host code) byte-equal to the plain one on
+    every frame of the committed JAX-written checkpoint and on the
+    committed ``zstandard`` frames, with both decoders' MB/s; (b) that
+    checkpoint read through the CUDA path, bit-equal to its ``.npz`` twin;
+    (c) the trained dv-base written with the port's ``save_checkpoint``
+    and read back onto the card, bit for bit, with seconds and MB/s of
+    both; (d) ``LLMEngine`` booted from that directory gives the greedy
+    tokens of the engine booted from the ``.npz`` (2 report prompts,
+    json_mode, 64 tokens) and launches #1 and #2."""
+    import hashlib
+    import tempfile
+
+    from deepvision_tpu_torch.engine import zstd as plain_zstd
+    from deepvision_tpu_torch.engine.kernels import zstd as compiled_zstd
+    from deepvision_tpu_torch.engine.tokenizer import get_tokenizer
+    from deepvision_tpu_torch.engine.weights import (
+        init_params,
+        load_checkpoint,
+        load_npz,
+        save_checkpoint,
+    )
+    from deepvision_tpu_torch.engine.config import get_model_config
+
+    t0 = time.monotonic()
+    fixtures = os.path.join(ROOT, "tests", "fixtures", "torch_orbax")
+    # (a) the decoders, frame by frame
+    with open(os.path.join(fixtures, "frames.json")) as fh:
+        index = json.load(fh)["frames"]
+    with open(os.path.join(fixtures, "frames.zst"), "rb") as fh:
+        blob = fh.read()
+    committed = [blob[f["offset"]:f["offset"] + f["length"]] for f in index]
+    sizes = [f["size"] for f in index]
+    for f, frame in zip(index, committed):
+        got = compiled_zstd.decompress(frame, f["size"])
+        if hashlib.sha256(got).hexdigest() != f["sha256"]:
+            raise AssertionError(f"orbax: compiled decoder on frame "
+                                 f"{f['name']}: wrong bytes")
+        if bytes(got) != bytes(plain_zstd.decompress(frame)):
+            raise AssertionError(f"orbax: decoders differ on {f['name']}")
+    ckpt = os.path.join(fixtures, "tiny_ckpt")
+    fixture = _orbax_fixture_frames(ckpt)
+    fixture_sizes = []
+    for frame in fixture:
+        want = plain_zstd.decompress(frame)
+        if bytes(compiled_zstd.decompress(frame)) != bytes(want):
+            raise AssertionError("orbax: decoders differ on a frame of the "
+                                 "committed checkpoint")
+        fixture_sizes.append(len(want))
+    frames, all_sizes = committed + fixture, sizes + fixture_sizes
+    # all 40 frames, and the checkpoint's alone (bf16 chunks and nodes)
+    rates = {"compiled_mb_s": _decode_rate(compiled_zstd.decompress, frames,
+                                           all_sizes, 20),
+             "plain_mb_s": _decode_rate(plain_zstd.decompress, frames,
+                                        all_sizes, 1),
+             "checkpoint_compiled_mb_s": _decode_rate(
+                 compiled_zstd.decompress, fixture, fixture_sizes, 20),
+             "checkpoint_plain_mb_s": _decode_rate(
+                 plain_zstd.decompress, fixture, fixture_sizes, 1)}
+    # (b) the fixture through the CUDA path against its twin
+    got = load_checkpoint(ckpt, device="cuda")
+    with np.load(os.path.join(fixtures, "tiny_ckpt.npz")) as twin:
+        for name in twin.files:
+            keys = name[:-len("@bf16")].split("/")
+            leaf = got
+            for k in keys:
+                leaf = leaf[k]
+            if leaf.device.type != "cuda" or not np.array_equal(
+                    leaf.view(torch.int16).cpu().numpy().view(np.uint16),
+                    twin[name]):
+                raise AssertionError(f"orbax: fixture leaf {name} differs "
+                                     f"from its twin")
+    # (c) dv-base through the port's writer and reader
+    cfg = get_model_config("dv-base")
+    npz = os.path.join(ROOT, "resources", "checkpoints", "dv-base.npz")
+    params = load_npz(npz, device="cuda")
+    nbytes = _param_bytes(params)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "dv-base")
+        t = time.monotonic()
+        save_checkpoint(path, params)
+        write_s = time.monotonic() - t
+        t = time.monotonic()
+        back = load_checkpoint(path, init_params(cfg, device="meta"),
+                               device="cuda")
+        torch.cuda.synchronize()
+        read_s = time.monotonic() - t
+        want, have = dict(_flat(params)), dict(_flat(back))
+        if set(want) != set(have) or any(
+                have[k].device.type != "cuda" or have[k].dtype != v.dtype
+                or not torch.equal(have[k].view(torch.int16),
+                                   v.view(torch.int16))
+                for k, v in want.items()):
+            raise AssertionError("orbax: dv-base read back differs")
+        del params, back, want, have
+        torch.cuda.empty_cache()
+        # (d) the engine from the directory against the .npz boot
+        tokenizer = get_tokenizer(os.path.join(
+            ROOT, "resources", "tokenizer", "dv_bpe_16k.json"))
+        prompts = _report_prompts(tokenizer, [400, 700])
+        ref, npz_boot_s, _, _ = _greedy_report_tokens(npz, prompts)
+        tokens, orbax_boot_s, launches, profiled = _greedy_report_tokens(
+            path, prompts, profile_it=True)
+    if tokens != ref:
+        first = [_first_diff(a, b) for a, b in zip(tokens, ref)]
+        raise AssertionError(f"orbax: the orbax boot's greedy tokens "
+                             f"differ from the .npz boot's at {first}")
+    if min(launches.values()) <= 0 or min(profiled.values()) <= 0:
+        raise AssertionError(f"orbax: a kernel was not launched: {launches} "
+                             f"{profiled}")
+    out = {
+        "phase": "orbax",
+        "committed_frames": len(committed),
+        "fixture_frames": len(fixture),
+        "decoded_bytes": sum(all_sizes), **rates,
+        "fixture_leaves_bit_equal": True,
+        "dv_base_bytes": nbytes, "write_s": write_s,
+        "write_mb_s": nbytes / write_s / 1e6, "read_s": read_s,
+        "read_mb_s": nbytes / read_s / 1e6,
+        "npz_boot_s": npz_boot_s, "orbax_boot_s": orbax_boot_s,
+        "tokens": [len(t) for t in tokens], "tokens_equal": True,
+        "launches": launches, "profiler_launches": profiled,
+    }
     out["seconds"] = time.monotonic() - t0
     emit(out)
     return out
@@ -3255,6 +3523,7 @@ def main() -> int:
     app = phase_app()
     ops = phase_ops()
     phase_hf_import()
+    phase_orbax()
     train = phase_train()
     emit({"phase": "all", "seconds": time.monotonic() - t0})
     # each kernel's launches come from the phase whose path it is

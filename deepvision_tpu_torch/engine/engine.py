@@ -36,8 +36,8 @@ from deepvision_tpu_torch.engine.weights import load_or_init
 class EngineConfig:
     model: str = "dv-1b"
     tokenizer: str = "byte"
-    # a flat .npz file; any other path, or None, boots random weights from
-    # seed (weights.load_or_init); an orbax directory raises
+    # a flat .npz file or an orbax checkpoint directory; any other path, or
+    # None, boots random weights from seed (weights.load_or_init)
     checkpoint_dir: Optional[str] = None
     device: str = "cuda"
     max_slots: int = 8

@@ -7,8 +7,10 @@ in ``.gitignore``) under a name keyed by a hash of the sources and flags,
 so an edited source rebuilds and an unchanged one loads at once.  Nothing
 here includes PyTorch's headers: that keeps a build to seconds.
 
-Every exported C function returns ``cudaGetLastError()`` after its launch;
-:func:`check` turns a non-zero code into an exception.
+Every exported kernel function returns ``cudaGetLastError()`` after its
+launch; :func:`check` turns a non-zero code into an exception.  One source,
+``zstd_decode.cu``, is host code with no kernel: the zstd decoder that CUDA
+checkpoint loads use (``kernels/zstd.py``).
 """
 
 from __future__ import annotations
@@ -76,7 +78,12 @@ _SIGNATURES = {
                        _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     # HD, pool_dtype, out int[5]
     "dv_paged_chunk_info": [_I, _I, _P],
+    # host code (csrc/zstd_decode.cu): src, n, dst, cap -> bytes written or
+    # a negative error
+    "dv_zstd_decompress": [_P, ctypes.c_longlong, _P, ctypes.c_longlong],
 }
+# return types other than the launches' cudaError_t
+_RESTYPES = {"dv_zstd_decompress": ctypes.c_longlong}
 
 _lock = threading.Lock()
 _state: dict = {}
@@ -162,7 +169,7 @@ def library() -> ctypes.CDLL:
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            fn.restype = _RESTYPES.get(name, ctypes.c_int)
         _state.update(lib=lib, build_s=time.monotonic() - t0,
                       log_path=log_path, so_path=so_path)
         return lib

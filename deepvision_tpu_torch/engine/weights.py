@@ -2,8 +2,8 @@
 
 The layout is the JAX package's: ``embed [V, D]``, ``final_norm [D]`` and a
 ``blocks`` dict whose leaves carry a leading layer axis (``wq [L, D, H*HD]``
-and so on).  Keeping it means one ``.npz`` checkpoint serves both packages
-and a test can hand the same numbers to both.
+and so on).  Keeping it means one ``.npz`` checkpoint or orbax directory
+serves both packages and a test can hand the same numbers to both.
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from deepvision_tpu_torch.engine import orbax_format
 from deepvision_tpu_torch.engine.config import ModelConfig
 from deepvision_tpu_torch.engine.quant import is_quantized_weight
 
@@ -27,12 +28,17 @@ def init_params(cfg: ModelConfig, *, device, seed: int = 0,
     Draws come from a ``torch.Generator`` seeded with ``seed`` on the CPU
     (then moved to ``device``), so the same seed gives the same weights on
     every device; they differ from the JAX package's draws for that seed.
+    On the ``meta`` device nothing is drawn or allocated: the tree gives
+    names, shapes and dtypes only (a restore template).
     """
     gen = torch.Generator().manual_seed(seed)
     D, F, HD = cfg.d_model, cfg.d_ff, cfg.head_dim
     H, KV, L, V = cfg.n_heads, cfg.n_kv_heads, cfg.n_layers, cfg.vocab_size
+    meta = torch.device(device).type == "meta"
 
     def norm(shape, fan_in):
+        if meta:
+            return torch.empty(shape, device=device, dtype=dtype)
         w = torch.randn(shape, generator=gen, dtype=torch.float32)
         return (w / math.sqrt(fan_in)).to(device=device, dtype=dtype)
 
@@ -103,6 +109,24 @@ def load_npz(path: str, *, device) -> dict:
     return params
 
 
+def round_to_bf16(t: torch.Tensor) -> torch.Tensor:
+    """float32 -> bfloat16 as the JAX package's orbax restore converts (in
+    tensorstore): round to nearest even on the bits; a NaN keeps its sign
+    and top payload bits with bit 5 set (0x7FC00000 -> 0x7FE0).  Finite
+    values and infinities match ``ml_dtypes`` and JAX's ``astype`` too;
+    torch's own cast gives other NaN bits.  Works through the tensor in
+    slices, so the int64 scratch stays small."""
+    flat = t.detach().contiguous().view(-1).view(torch.int32)
+    out = torch.empty(flat.shape, dtype=torch.int16, device=flat.device)
+    step = 1 << 24
+    for i in range(0, flat.numel(), step):
+        u = flat[i:i + step].to(torch.int64) & 0xFFFFFFFF
+        r = (u + 0x7FFF + ((u >> 16) & 1)) >> 16
+        r = torch.where((u & 0x7FFFFFFF) > 0x7F800000, (u >> 16) | 0x20, r)
+        out[i:i + step] = r.to(torch.int32).to(torch.int16)
+    return out.view(torch.bfloat16).view(t.shape)
+
+
 def astype(params: dict, dtype) -> dict:
     """Detached copies of a params tree's leaves in ``dtype``.  An int8
     weight ``{"q8", "scale"}`` (engine/quant.py) keeps its dtypes: cast, it
@@ -144,19 +168,70 @@ def save_npz(path: str, params: dict) -> None:
         fh.write(buf.getvalue())
 
 
+def save_checkpoint(path: str, params: dict) -> None:
+    """Write ``params`` as an orbax checkpoint directory, as the JAX
+    package's ``save_checkpoint`` does (``orbax_format.write_checkpoint``:
+    the layout without OCDBT, raw chunks); the JAX ``load_checkpoint``
+    reads it back bit for bit."""
+    orbax_format.write_checkpoint(path, params)
+
+
+def load_checkpoint(path: str, template: Optional[dict] = None, *,
+                    device) -> dict:
+    """Restore an orbax checkpoint directory onto ``device``, as the JAX
+    package's ``load_checkpoint``: OCDBT or plain, zstd or raw chunks.
+
+    Without ``template`` every leaf keeps its stored dtype.  With one (a
+    params tree, e.g. on the ``meta`` device), its tree must be the stored
+    one and its shapes the stored shapes, else ``ValueError``; each leaf is
+    cast to the template's dtype (float32 -> bfloat16 through
+    :func:`round_to_bf16`, bit for bit as the JAX restore converts).  zstd
+    is decoded by the compiled decoder on a CUDA load and by the plain one
+    on a CPU load.  Leaves are read, cast and copied to the device one at
+    a time."""
+    reader = orbax_format.CheckpointReader(
+        os.path.abspath(path), orbax_format.decoder_for(device))
+    wanted = None
+    if template is not None:
+        wanted = dict(orbax_format.flatten(template))
+        if set(wanted) != set(reader.leaves):
+            raise ValueError(
+                "User-provided restore item and on-disk value metadata tree "
+                f"structures do not match: template has "
+                f"{sorted(set(wanted) - set(reader.leaves))} not on disk, "
+                f"disk has {sorted(set(reader.leaves) - set(wanted))} not "
+                f"in the template")
+    params: dict = {}
+    for keys in sorted(reader.leaves):
+        t = reader.read(keys)
+        if wanted is not None:
+            like = wanted[keys]
+            if tuple(t.shape) != tuple(like.shape):
+                raise ValueError(f"{'.'.join(keys)}: stored shape "
+                                 f"{tuple(t.shape)}, template "
+                                 f"{tuple(like.shape)}")
+            t = (round_to_bf16(t) if (t.dtype, like.dtype) ==
+                 (torch.float32, torch.bfloat16) else t.to(like.dtype))
+        node = params
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = t.to(device)
+    return params
+
+
 def load_or_init(cfg: ModelConfig, checkpoint_dir: Optional[str],
                  seed: int = 0, *, device) -> dict:
     """Engine boot path, as the JAX package's ``load_or_init``: a flat
-    ``.npz`` file is loaded; a directory (an orbax checkpoint there) raises
-    NotImplementedError, since orbax is not ported; any other path, or
-    none, gives random weights from ``seed``."""
+    ``.npz`` file is loaded; a directory is restored as an orbax checkpoint
+    with ``init_params``' names, shapes and bfloat16 dtype as the template
+    (built on the ``meta`` device); any other path, or none, gives random
+    weights from ``seed``."""
     if checkpoint_dir and os.path.isfile(checkpoint_dir) and \
             checkpoint_dir.endswith(".npz"):
         return load_npz(checkpoint_dir, device=device)
     if checkpoint_dir and os.path.isdir(checkpoint_dir):
-        raise NotImplementedError(
-            f"{checkpoint_dir!r} is a directory: orbax checkpoints are not "
-            f"ported; convert it to a flat .npz (save_npz)")
+        template = init_params(cfg, device="meta", seed=seed)
+        return load_checkpoint(checkpoint_dir, template, device=device)
     return init_params(cfg, device=device, seed=seed)
 
 

@@ -289,17 +289,33 @@ def test_npz_interchange_with_jax_bit_for_bit(tmp_path, dtype):
 
 
 def test_load_or_init_matches_jax_choices(tmp_path):
-    """Fault 2: a ``.npz`` loads; a directory (orbax in JAX) raises a named
-    NotImplementedError; a missing path or None gives random weights from
-    the seed, as the JAX ``load_or_init`` falls back to ``init_params``."""
+    """Fault 2: a ``.npz`` loads; a directory is an orbax checkpoint in both
+    packages (restored bit for bit against the JAX ``load_or_init``; an
+    empty one raises FileNotFoundError in both); a missing path or None
+    gives random weights from the seed, as the JAX ``load_or_init`` falls
+    back to ``init_params``."""
     path = str(tmp_path / "tiny.npz")
     jweights.save_npz(path, jweights.init_params(TINY_TEST, seed=4))
     loaded = tweights.load_or_init(TINY_TEST, path, device="cpu")
     want = tweights.load_npz(path, device="cpu")
     assert all(torch.equal(a, b) for (_, a), (_, b)
                in zip(_flat(loaded), _flat(want)))
-    with pytest.raises(NotImplementedError, match="orbax"):
-        tweights.load_or_init(TINY_TEST, str(tmp_path), device="cpu")
+    ckpt = str(tmp_path / "ckpt")
+    jweights.save_checkpoint(ckpt, jweights.init_params(TINY_TEST, seed=4))
+    got = dict(_flat(tweights.load_or_init(TINY_TEST, ckpt, device="cpu")))
+    jgot = dict(_flat(_np_tree(jweights.load_or_init(TINY_TEST, ckpt))))
+    assert set(got) == set(jgot)
+    for name, t in got.items():
+        assert t.dtype == torch.bfloat16
+        np.testing.assert_array_equal(
+            t.view(torch.int16).numpy().view(np.uint16),
+            jgot[name].view(np.uint16))
+    empty = tmp_path / "empty"
+    empty.mkdir()
+    with pytest.raises(FileNotFoundError):
+        tweights.load_or_init(TINY_TEST, str(empty), device="cpu")
+    with pytest.raises(FileNotFoundError):
+        jweights.load_or_init(TINY_TEST, str(empty))
     fresh = tweights.init_params(TINY_TEST, device="cpu", seed=7)
     for spec in (str(tmp_path / "missing.npz"), None, ""):
         got = tweights.load_or_init(TINY_TEST, spec, 7, device="cpu")
@@ -317,8 +333,18 @@ def test_engine_boots_through_load_or_init(tmp_path):
     eng = LLMEngine(EngineConfig(
         **tiny, checkpoint_dir=str(tmp_path / "missing.npz")))
     eng.shutdown()
-    with pytest.raises(NotImplementedError, match="orbax"):
-        LLMEngine(EngineConfig(**tiny, checkpoint_dir=str(tmp_path)))
+    ckpt = str(tmp_path / "ckpt")
+    jparams = jweights.init_params(TINY_TEST, seed=2)
+    jweights.save_checkpoint(ckpt, jparams)
+    eng = LLMEngine(EngineConfig(**tiny, checkpoint_dir=ckpt))
+    try:
+        got = dict(_flat(eng.runner.params))
+        for name, want in _flat(_np_tree(jparams)):
+            np.testing.assert_array_equal(
+                got[name].view(torch.int16).numpy().view(np.uint16),
+                want.view(np.uint16))
+    finally:
+        eng.shutdown()
 
 
 # -- EngineConfig -------------------------------------------------------------
