@@ -89,7 +89,7 @@ Phases, each printing one JSON line with its own seconds:
 12. app     — the interview app on the card through its entry points:
    ``create_app`` in engine mode (dv-fast on the question lanes, dv-base
    on the report lanes, random weights from the seed, the app's
-   defaults, warmup on; lanes capped at 256 new tokens) and its test client: login, a session, a reference
+   defaults, warmup on; lanes capped at 128 new tokens) and its test client: login, a session, a reference
    document of several KB (chunked, summarised, embedded by the interview
    assistant), next-question, submit-answer, a second next-question,
    generate-report polled to completion, the report, a docx export,
@@ -107,7 +107,7 @@ Phases, each printing one JSON line with its own seconds:
    ``main``: ``python -m deepvision_tpu_torch.report_generator`` (template
    readiness in a subprocess, then ``generate --all --workers 2`` in
    engine mode on its default dv-1b at full width, random weights, lanes
-   capped at 256 new tokens: both reports saved and bound, the reports/min
+   capped at 128 new tokens: both reports saved and bound, the reports/min
    line), ``eval_generation_quality`` (trained dv-fast question lane and
    dv-base report lane, 8 generations each) and ``eval_quant_quality``
    (trained dv-base, bf16 against int8 weights, 2 prompts); #1, #2 and #3
@@ -129,7 +129,24 @@ Phases, each printing one JSON line with its own seconds:
    ``LLMEngine`` booted from that directory giving the greedy tokens of
    the ``.npz`` boot (2 report prompts, json_mode, 64 tokens), #1 and #2
    launched (wrapper counts and ``torch.profiler``);
-16. train   — dv-base fine-tuning through the port's ``Trainer`` at its
+16. engine_tp — tensor-parallel serving, two ranks on ``cuda:0`` over
+   gloo (the engine's process and one spawned worker): the trained
+   dv-base at ``tp=2, vocab_sharded=True`` through ``LLMEngine`` (4
+   json_mode report drafts of 64 tokens, a session's two turns, the
+   second resumed through the prefix cache), then the same at tp=1; then
+   ``build_gateway`` with ``ENGINE_TP=2`` (a JSON-mode question, a report
+   draft, 64 tokens each); then dv-gemma-2b at full width, 2 of its 18 layers, random
+   weights, at tp=2 (auto vocab sharding, its one kv head replicated, head
+   dim 256) and at tp=1, 32 greedy tokens and a follow-up through the
+   prefix cache.  Every JSON output must parse, #1, #2 and #3 must launch
+   on every rank (the gateway's fresh prompts: #1 and #2), the
+   teacher-forced logits must agree with tp=1 on the same weights within
+   5 % of their range, and no worker may outlive its engine; each rank's
+   backend and device, the launches summed over the ranks, the first
+   greedy divergence from tp=1 with its top-2 gap, the decode step and
+   the host time in the step's collectives are reported.  Phase
+   ``kernels`` also runs #1, #2 and #3 at the two models' shard shapes;
+17. train   — dv-base fine-tuning through the port's ``Trainer`` at its
    full width and depth: float32 params (random, seed 0), bf16
    activations, batch 8 x 2,049 tokens of seeded interview text through
    the dv_bpe_16k tokenizer, ``train_model.py``'s optimizer chain, the
@@ -138,13 +155,14 @@ Phases, each printing one JSON line with its own seconds:
    a step, one step at B=2 must agree with the plain attention through
    autograd (loss and every gradient leaf), and ``save_npz`` ->
    ``load_or_init`` must give back the same bits; one step is profiled;
-17. the card's name and power limit again, then the ``kernels`` line the
+18. the card's name and power limit again, then the ``kernels`` line the
    benchmark contract reads (seven kernels, each with its achieved
    TFLOP/s, whether it computes on the tensor cores or in fp32 on the
    CUDA cores and, for the kernels that split columns, the split count
-   and the time unsplit, and phases ``app``'s and ``ops``' launches of
-   #1-#3), after the whole run's seconds;
-18. shutdown, then the last line ``{"ok": true, "device": {...}}``.
+   and the time unsplit, phases ``app``'s and ``ops``' launches of #1-#3,
+   and phase ``engine_tp``'s launches and shard-shape cases of #1-#3),
+   after the whole run's seconds;
+19. shutdown, then the last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the script exits non-zero without the last
 line.  Without CUDA it exits 2 before any phase.
@@ -154,6 +172,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import dataclasses
 import gc
 import glob
 import importlib
@@ -1004,6 +1023,34 @@ def chunk_cases(gen) -> dict:
     return main
 
 
+def tp_shard_cases(gen) -> dict:
+    """#1, #2 and #3 at the shard shapes tensor-parallel serving at tp=2
+    gives them (phase ``engine_tp``): dv-base's H 6 / KV 2 cut to 3 / 1 a
+    rank at head dim 128, and dv-gemma-2b's H 8 cut to 4 a rank on its one
+    replicated kv head at head dim 256; the main paths' batch and lengths.
+    Returns the cases by kernel name, then model."""
+    bf16 = torch.bfloat16
+    out = {"paged_decode_update": {}, "flash_fwd": {}, "paged_chunk": {}}
+    out["paged_decode_update"]["dv-base"] = _decode_case(
+        "tp2_dvbase_b8_len1024", "decode", 8, 3, 1, 128, 64, 32, [1024] * 8,
+        bf16, gen, profiled=True)
+    out["paged_decode_update"]["dv-gemma-2b"] = _decode_case(
+        "tp2_gemma_b8_len1024", "decode", 8, 4, 1, 256, 64, 32, [1024] * 8,
+        bf16, gen)
+    out["flash_fwd"]["dv-base"] = _flash_case(
+        "tp2_dvbase_b4_s1024", 4, 3, 1, 1024, 128, [1024, 901, 640, 300],
+        bf16, gen, profiled=True)
+    out["flash_fwd"]["dv-gemma-2b"] = _flash_case(
+        "tp2_gemma_b2_s512", 2, 4, 1, 512, 256, [512, 300], bf16, gen)
+    out["paged_chunk"]["dv-base"] = _chunk_case(
+        "tp2_dvbase_s640_n896", 1, 256, 3, 1, 128, 64, 32, [640], [896],
+        bf16, gen, profiled=True)
+    out["paged_chunk"]["dv-gemma-2b"] = _chunk_case(
+        "tp2_gemma_s256_n400", 1, 256, 4, 1, 256, 64, 8, [256], [400], bf16,
+        gen)
+    return out
+
+
 def phase_kernels() -> dict:
     t0 = time.monotonic()
     gen = torch.Generator(device="cuda")
@@ -1034,8 +1081,10 @@ def phase_kernels() -> dict:
     split_cases(gen)
     chunk = chunk_cases(gen)
     bwd = bwd_cases(gen)
+    tp = tp_shard_cases(gen)
     emit({"phase": "kernels_done", "seconds": time.monotonic() - t0})
-    return {"flash_fwd": flash[0], "paged_chunk": chunk, **bwd, **decode}
+    return {"flash_fwd": flash[0], "paged_chunk": chunk, **bwd, **decode,
+            "tp_shard": tp}
 
 
 def _report_prompts(tokenizer, targets):
@@ -2184,8 +2233,9 @@ APP_SETTINGS = {
 }
 APP_USER_PHONE = "13900000001"
 # Random weights never close their JSON, so each call runs to its token
-# cap; the caps bound the phase's time (the app's lanes allow up to 8,000).
-APP_MAX_TOKENS = 256
+# cap; the caps bound the phase's time (the app's lanes allow up to 8,000;
+# 256 until phase engine_tp took its share of the run's time).
+APP_MAX_TOKENS = 128
 APP_SERVER_STEP_S = 90.0
 
 
@@ -3238,6 +3288,377 @@ def phase_orbax() -> dict:
     return out
 
 
+# phase engine_tp: the report lane's serving settings (chunked prefill, so
+# the prefix cache resumes through #3), at tp=1 and tp=2
+TP_ENGINE = dict(device="cuda", max_slots=8, num_pages=1024, page_size=64,
+                 max_pages_per_seq=32, decode_steps_per_call=16,
+                 chunked_prefill=True, json_dfa=True, warmup=False, seed=SEED)
+# dv-gemma-2b at full width, its depth cut from 18 to 2 layers: every rank
+# draws the whole model's random weights on the host before cutting its
+# shard, and the 256k x 2,048 embedding alone is 0.5 G draws
+TP_GEMMA = dict(model="dv-gemma-2b", tokenizer="byte", checkpoint_dir=None,
+                device="cuda", max_slots=4, num_pages=256, page_size=64,
+                max_pages_per_seq=16, decode_steps_per_call=8,
+                chunked_prefill=True, json_dfa=False, warmup=False, seed=SEED)
+TP_GEMMA_LAYERS = 2
+TP_BASE_TOKENS = 64
+TP_NAMES = {"flash_fwd": "flash_attention",
+            "paged_decode_update": "paged_attention_update",
+            "paged_chunk": "paged_chunk_attention"}
+
+
+def _serving_counters() -> dict:
+    from deepvision_tpu_torch.engine.kernels.flash_attention import (
+        flash_attention,
+    )
+    from deepvision_tpu_torch.engine.kernels.paged_attention import (
+        paged_attention_update,
+    )
+    from deepvision_tpu_torch.engine.kernels.paged_chunk import (
+        paged_chunk_attention,
+    )
+
+    return {"flash_fwd": flash_attention,
+            "paged_decode_update": paged_attention_update,
+            "paged_chunk": paged_chunk_attention}
+
+
+def _tp_zero(engines) -> list:
+    """Fold every TP engine's worker launches so far into this process's
+    counters (``LLMEngine.stats``), then zero #1-#3's counters; returns
+    each engine's worker counts at that point."""
+    before = [e.stats()["tp"]["worker_launches"] for e in engines]
+    for fn in _serving_counters().values():
+        fn.launches = 0
+    return before
+
+
+def _tp_read(engines, before) -> dict:
+    """#1-#3's launches since :func:`_tp_zero`: summed over every rank
+    (this process's counters, the workers' folded in), and by rank."""
+    after = [e.stats()["tp"]["worker_launches"] for e in engines]
+    total = {k: fn.launches for k, fn in _serving_counters().items()}
+    workers = [{k: a[n] - b[n] for k, n in TP_NAMES.items()}
+               for a_e, b_e in zip(after, before)
+               for a, b in zip(a_e, b_e)]
+    rank0 = {k: total[k] - sum(w[k] for w in workers) for k in total}
+    return {"all_ranks": total, "rank0": rank0, "workers": workers}
+
+
+def _decode_step_reading(eng, n_steps: int = 16) -> dict:
+    """One ``runner.decode`` call of ``n_steps`` steps with every slot at
+    length 600 (writes into the trash page), after one unmeasured call:
+    host ms a step, and the collectives and host ms in them a step on
+    rank 0."""
+    runner = eng.runner
+    B, MP = eng.cfg.max_slots, eng.cache_cfg.max_pages_per_seq
+    args = (np.ones(B, np.int32), np.full(B, 600, np.int32),
+            np.zeros((B, MP), np.int32), np.zeros(B, np.float32),
+            np.zeros(B, np.int32), np.ones(B, np.float32))
+    runner.decode(*args, n_steps=n_steps)
+    group = runner.group
+    calls, wait = (group.calls, group.wait_s) if group else (0, 0.0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    runner.decode(*args, n_steps=n_steps)
+    torch.cuda.synchronize()
+    out = {"B": B, "n_steps": n_steps,
+           "ms_per_step": (time.perf_counter() - t0) * 1e3 / n_steps,
+           "collectives_per_step": 0, "gloo_ms_per_step": 0.0}
+    if group:
+        out["collectives_per_step"] = (group.calls - calls) / n_steps
+        out["gloo_ms_per_step"] = (group.wait_s - wait) * 1e3 / n_steps
+    return out
+
+
+def _tp_ranks(eng) -> dict:
+    st = eng.stats()["tp"]
+    return {k: st[k] for k in ("ranks", "backend", "devices",
+                               "vocab_sharded", "kv_sharded",
+                               "worker_boot_s")}
+
+
+def _tf_error(got, want) -> dict:
+    """Teacher-forced logits of a TP engine against tp=1 on the same
+    weights: two bf16 paths whose all_reduce sums the partial products in
+    another order, through every layer; the tolerance is phase engine's,
+    5 % of the logit range."""
+    err = (got - want).abs().max().item()
+    tol = 0.05 * want.abs().max().item() + 0.05
+    return {"logit_err": err, "logit_tol": tol, "rows": got.shape[0],
+            "vocab": got.shape[1]}
+
+
+def _dv_base_tp_run(tp, prompts, session, tf_ids=None, keep=False):
+    """Trained dv-base through ``LLMEngine`` at ``tp``: 4 concurrent
+    json_mode report drafts (64 tokens, greedy), then a session's two
+    turns with a prefix key (the second resumes through #3), a decode-step
+    reading and teacher-forced logits over ``tf_ids`` (default: prompt 0
+    and its tokens).  Returns ``(engine or None, readings)``: ``keep``
+    leaves the engine running for the caller to shut down."""
+    from deepvision_tpu_torch.engine.engine import EngineConfig, LLMEngine
+
+    t0 = time.monotonic()
+    eng = LLMEngine(EngineConfig(
+        model="dv-base", tokenizer=os.path.join(
+            ROOT, "resources", "tokenizer", "dv_bpe_16k.json"),
+        checkpoint_dir=TRAINED_BASE, tp=tp,
+        vocab_sharded=True if tp > 1 else None, **TP_ENGINE))
+    try:
+        eng.start()
+        boot_s = time.monotonic() - t0
+        before = _tp_zero([eng]) if tp > 1 else None
+        for fn in _serving_counters().values():
+            fn.launches = 0
+        t_serve = time.monotonic()
+        reqs = [eng.submit_tokens(ids, max_tokens=TP_BASE_TOKENS,
+                                  temperature=0.0, json_mode=True)
+                for ids in prompts]
+        tokens = []
+        for r in reqs:
+            res = r.wait(600)
+            if res is None or not res.ok:
+                raise AssertionError(f"engine_tp tp={tp}: {res}")
+            tokens.append(res.token_ids)
+        turns = []
+        for ids in session:
+            res = eng.submit_tokens(ids, max_tokens=32, temperature=0.0,
+                                    json_mode=True,
+                                    prefix_key="tp-session-0").wait(600)
+            if res is None or not res.ok:
+                raise AssertionError(f"engine_tp tp={tp} session: {res}")
+            turns.append(res.token_ids)
+        serve_s = time.monotonic() - t_serve
+        texts = [eng.tokenizer.decode(t) for t in tokens + turns]
+        for text in texts:
+            json.loads(text)  # raises on unparseable output
+        if tp > 1:
+            launches = _tp_read([eng], before)
+        else:
+            launches = {"all_ranks": {k: fn.launches for k, fn in
+                                      _serving_counters().items()}}
+        stats = eng.stats()
+        out = {"tp": tp, "boot_s": boot_s, "serve_s": serve_s,
+               "launches": launches, "json_parsed": len(texts),
+               "prefix_cache": stats["prefix_cache"],
+               "decode_ms_per_step_served": stats["decode_time_s"] * 1e3
+               / max(1, stats["decode_steps"]),
+               "decode_step": _decode_step_reading(eng),
+               "tokens": tokens, "turns": turns}
+        if tp > 1:
+            out["ranks"] = _tp_ranks(eng)
+        out["tf_logits"] = eng.teacher_forced_logits(
+            tf_ids or prompts[0] + tokens[0], len(prompts[0]))
+    except BaseException:
+        eng.shutdown()
+        raise
+    if keep:
+        return eng, out
+    eng.shutdown()
+    return None, out
+
+
+def _gemma_tp_run(tp, ids, follow, tf_ids=None):
+    """dv-gemma-2b at full width, 2 layers, on random weights from the seed:
+    a greedy run of 32 tokens, a follow-up turn through the prefix cache
+    (#3 at the shard shape), a decode-step reading and teacher-forced
+    logits over ``tf_ids``."""
+    from deepvision_tpu_torch.engine.engine import EngineConfig, LLMEngine
+
+    from deepvision_tpu_torch.engine.config import get_model_config
+
+    t0 = time.monotonic()
+    eng = LLMEngine(EngineConfig(**TP_GEMMA, tp=tp),
+                    model_cfg=dataclasses.replace(
+                        get_model_config("dv-gemma-2b"),
+                        n_layers=TP_GEMMA_LAYERS))
+    try:
+        eng.start()
+        boot_s = time.monotonic() - t0
+        before = _tp_zero([eng]) if tp > 1 else None
+        res = eng.submit_tokens(ids, max_tokens=32, temperature=0.0,
+                                prefix_key="tp-gemma").wait(600)
+        if res is None or not res.ok:
+            raise AssertionError(f"engine_tp gemma tp={tp}: {res}")
+        tokens = res.token_ids
+        res = eng.submit_tokens(ids + tokens + follow, max_tokens=8,
+                                temperature=0.0,
+                                prefix_key="tp-gemma").wait(600)
+        if res is None or not res.ok:
+            raise AssertionError(f"engine_tp gemma tp={tp} follow-up: {res}")
+        out = {"tp": tp, "boot_s": boot_s, "tokens": tokens,
+               "prefix_cache": eng.stats()["prefix_cache"],
+               "decode_step": _decode_step_reading(eng)}
+        if tp > 1:
+            out["launches"] = _tp_read([eng], before)
+            out["ranks"] = _tp_ranks(eng)
+            out["plan"] = {"vocab_sharded": eng.plan.vocab_sharded,
+                           "kv_sharded": eng.plan.kv_sharded}
+        out["tf_logits"] = eng.teacher_forced_logits(tf_ids or ids + tokens,
+                                                     len(ids))
+    finally:
+        eng.shutdown()
+    return out
+
+
+def _divergence(tp_tokens, ref_tokens, gap_fn) -> dict:
+    """The first token where a TP run and the tp=1 run differ, with the
+    tp=1 context's top-2 logit gap there (ROADMAP §3 D: summation order
+    flips near-tied logits)."""
+    d = _first_diff(tp_tokens, ref_tokens)
+    return {"first_diff": d, "top2_gap": None if d is None else gap_fn(d)}
+
+
+def phase_engine_tp() -> dict:
+    """Tensor-parallel serving on the card (two ranks on ``cuda:0`` over
+    gloo): trained dv-base at tp=2 with vocab sharding through
+    ``LLMEngine``, against tp=1 on the same weights; then ``build_gateway``
+    with ``ENGINE_TP=2`` (the app's way: a JSON-mode question and a report
+    draft); then dv-gemma-2b (full width, 2 layers) at tp=2 on random
+    weights (auto vocab sharding, its one kv head replicated, head dim 256)
+    against tp=1.  #1,
+    #2 and #3 must launch on every rank, every JSON output must parse, the
+    teacher-forced logits must agree with tp=1 within 5 % of their range,
+    and no worker may outlive its engine."""
+    import multiprocessing
+
+    t0 = time.monotonic()
+    gc.collect()
+    torch.cuda.empty_cache()
+    from deepvision_tpu_torch.engine.tokenizer import get_tokenizer
+
+    tok = get_tokenizer(os.path.join(ROOT, "resources", "tokenizer",
+                                     "dv_bpe_16k.json"))
+    prompts = [tok.encode(p) for p in
+               _report_prompts(tok, [300, 500, 700, 900])]
+    session = _interview_sessions(tok, n_turns=2)[0]
+    _, tp2 = _dv_base_tp_run(2, prompts, session)
+    eng1, tp1 = _dv_base_tp_run(1, prompts, session,
+                                tf_ids=prompts[0] + tp2["tokens"][0],
+                                keep=True)
+    try:
+        divergence = [
+            _divergence(a, b, lambda d, i=i, b=b: _top2_gap(
+                eng1, prompts[i], b, d, TP_BASE_TOKENS))
+            for i, (a, b) in enumerate(zip(tp2["tokens"], tp1["tokens"]))]
+    finally:
+        eng1.shutdown()
+    base_tf = _tf_error(tp2["tf_logits"], tp1["tf_logits"])
+    for name, n in tp2["launches"]["all_ranks"].items():
+        if n <= 0 or any(r[name] <= 0 for r in
+                         [tp2["launches"]["rank0"]]
+                         + tp2["launches"]["workers"]):
+            raise AssertionError(f"engine_tp dv-base: {name} not launched "
+                                 f"on every rank {tp2['launches']}")
+    if not (tp2["ranks"]["vocab_sharded"] and tp2["ranks"]["kv_sharded"]):
+        raise AssertionError(f"engine_tp dv-base plan {tp2['ranks']}")
+    if not base_tf["logit_err"] <= base_tf["logit_tol"]:
+        raise AssertionError(f"engine_tp dv-base teacher-forced logits "
+                             f"{base_tf}")
+    base = {"phase": "engine_tp", "part": "dv-base", "weights": TRAINED_BASE,
+            "ranks": tp2["ranks"], "launches": tp2["launches"],
+            "json_parsed": tp2["json_parsed"] + tp1["json_parsed"],
+            "json_total": tp2["json_parsed"] + tp1["json_parsed"],
+            "teacher_forced": base_tf, "divergence_from_tp1": divergence,
+            "session_turns_equal": tp2["turns"] == tp1["turns"],
+            "prefix_cache_tp2": tp2["prefix_cache"],
+            "decode_step_tp2": tp2["decode_step"],
+            "decode_step_tp1": tp1["decode_step"],
+            "decode_ms_per_step_served": {
+                "tp2": tp2["decode_ms_per_step_served"],
+                "tp1": tp1["decode_ms_per_step_served"]},
+            "serve_s": {"tp2": tp2["serve_s"], "tp1": tp1["serve_s"]},
+            "boot_s": {"tp2": tp2["boot_s"], "tp1": tp1["boot_s"]},
+            "seconds": time.monotonic() - t0}
+    emit(base)
+    if multiprocessing.active_children():
+        raise AssertionError(f"engine_tp: workers outlived their engine "
+                             f"{multiprocessing.active_children()}")
+
+    # the app's way: build_gateway with ENGINE_TP=2
+    t_gw = time.monotonic()
+    gw, boot, lanes, steps = _gateway_boot({"ENGINE_TP": "2"})
+    try:
+        engines = list(gw.engines.values())
+        if any(e.plan is None or e.plan.n_model != 2 for e in engines):
+            raise AssertionError("gateway: an engine is not tp=2")
+        before = _tp_zero(engines)
+        q_prompt, _ = _question_prompts()
+        r_prompt = _report_prompts(gw.engines["dv-base"].tokenizer, [800])[0]
+        ctx = {"session_id": "dv-smoke-tp-session"}
+        _, meta_q = _call(gw, q_prompt, "question", "question", "dv-fast",
+                          max_tokens=TP_BASE_TOKENS, context=ctx)
+        _, meta_r = _call(gw, r_prompt, "report_draft", "report_draft",
+                          "dv-base", max_tokens=TP_BASE_TOKENS,
+                          temperature=0.0, context=ctx)
+        gw_launches = _tp_read(engines, before)
+        gw_ranks = {m: _tp_ranks(e) for m, e in gw.engines.items()}
+    finally:
+        _shutdown(gw)
+    for name in ("flash_fwd", "paged_decode_update"):
+        if gw_launches["all_ranks"][name] <= 0 or any(
+                w[name] <= 0 for w in gw_launches["workers"]):
+            raise AssertionError(f"gateway tp=2: {name} not launched on "
+                                 f"every rank {gw_launches}")
+    emit({"phase": "engine_tp", "part": "gateway", "boot": boot,
+          "lanes": lanes, "decode_steps_per_call": steps, "ranks": gw_ranks,
+          "launches": gw_launches, "json_parsed": 2, "json_total": 2,
+          "meta": {"question": meta_q, "report_draft": meta_r},
+          "seconds": time.monotonic() - t_gw})
+    if multiprocessing.active_children():
+        raise AssertionError("engine_tp gateway: workers outlived their "
+                             "engines")
+
+    # dv-gemma-2b: MQA (K/V replicated), head dim 256, 256k vocab sharded
+    t_g = time.monotonic()
+    btok = get_tokenizer("byte")
+    q_prompt, follow_prompt = _question_prompts()
+    ids = btok.encode(q_prompt)[:300]
+    follow = btok.encode(follow_prompt)[-80:]
+    g2 = _gemma_tp_run(2, ids, follow)
+    g1 = _gemma_tp_run(1, ids, follow, tf_ids=ids + g2["tokens"])
+    g_tf = _tf_error(g2["tf_logits"], g1["tf_logits"])
+    d = _first_diff(g2["tokens"], g1["tokens"])
+    gap = None
+    if d is not None:
+        top = g1["tf_logits"][d].topk(2)
+        gap = {"gap": (top.values[0] - top.values[1]).item(),
+               "top2_tokens": top.indices.tolist()}
+    for name, n in g2["launches"]["all_ranks"].items():
+        if n <= 0 or any(w[name] <= 0 for w in g2["launches"]["workers"]):
+            raise AssertionError(f"engine_tp gemma: {name} not launched on "
+                                 f"every rank {g2['launches']}")
+    if g2["plan"] != {"vocab_sharded": True, "kv_sharded": False}:
+        raise AssertionError(f"engine_tp gemma plan {g2['plan']}")
+    if not g_tf["logit_err"] <= g_tf["logit_tol"]:
+        raise AssertionError(f"engine_tp gemma teacher-forced logits {g_tf}")
+    if multiprocessing.active_children():
+        raise AssertionError("engine_tp gemma: workers outlived their "
+                             "engine")
+    gemma = {"phase": "engine_tp", "part": "dv-gemma-2b",
+             "weights": f"random (seed {SEED})", "ranks": g2["ranks"],
+             "plan": g2["plan"], "launches": g2["launches"],
+             "teacher_forced": g_tf,
+             "divergence_from_tp1": {"first_diff": d, "top2_gap": gap},
+             "tokens_tp2": g2["tokens"][:8],
+             "prefix_cache_tp2": g2["prefix_cache"],
+             "decode_step_tp2": g2["decode_step"],
+             "decode_step_tp1": g1["decode_step"],
+             "boot_s": {"tp2": g2["boot_s"], "tp1": g1["boot_s"]},
+             "seconds": time.monotonic() - t_g}
+    emit(gemma)
+    launches = {k: base["launches"]["all_ranks"][k]
+                + gw_launches["all_ranks"][k]
+                + g2["launches"]["all_ranks"][k] for k in TP_NAMES}
+    out = {"phase": "engine_tp", "part": "summary",
+           "launches_all_ranks": launches,
+           "json_parse_rate": 1.0, "json_outputs": base["json_total"] + 2,
+           "logit_err": {"dv-base": base_tf, "dv-gemma-2b": g_tf},
+           "seconds": time.monotonic() - t0}
+    emit(out)
+    return out
+
+
 def _train_batch(tokenizer, rows: int, row_len: int, seed: int):
     """``[rows, row_len]`` token ids of seeded interview transcripts built
     from the in-repo scenarios (question and answer per dimension),
@@ -3524,6 +3945,7 @@ def main() -> int:
     ops = phase_ops()
     phase_hf_import()
     phase_orbax()
+    engine_tp = phase_engine_tp()
     train = phase_train()
     emit({"phase": "all", "seconds": time.monotonic() - t0})
     # each kernel's launches come from the phase whose path it is
@@ -3556,7 +3978,15 @@ def main() -> int:
          # the launches of phase app's HTTP traffic and of phase ops'
          # CLIs, for the kernels of their paths
          "app_launches": app["launches"].get(name),
-         "ops_launches": ops["launches"].get(name)}
+         "ops_launches": ops["launches"].get(name),
+         # tensor-parallel serving (phase engine_tp): launches summed over
+         # the ranks, and the kernel at each model's shard shape
+         "tp_launches": engine_tp["launches_all_ranks"].get(name),
+         "tp_shard_cases": {
+             model: {k: case[k] for k in (
+                 "case", "shape", "max_abs_err", "ms", "plain_ms",
+                 "bound_ms", "bound_by", "library_ms", "device_ms")}
+             for model, case in main_cases["tp_shard"].get(name, {}).items()}}
         for name in KERNELS]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["name"],
                                  "count": dev["count"]}})

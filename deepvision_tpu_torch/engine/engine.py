@@ -4,6 +4,13 @@ Owns tokenizer + runner + page allocator + continuous-batching scheduler
 and exposes a blocking ``generate_text`` with the same metadata keys as the
 JAX package's engine.  It runs on a CUDA device unless the caller passes
 ``device="cpu"``; it never drops to the CPU on its own.
+
+With ``tp > 1`` the engine serves tensor-parallel: its process is rank 0
+and runs the scheduler and a runner on rank 0's shard, and ``start()``
+spawns the other ranks (``engine/tp_workers.py``), which mirror every step
+of the runner on their shards; the ranks' collectives run over gloo
+(``engine/parallel.py``).  All ranks sit on ``cuda:(rank % device_count)``
+(one card runs them all), or on the CPU.
 """
 
 from __future__ import annotations
@@ -12,6 +19,7 @@ import dataclasses
 import os
 import threading
 import time
+import weakref
 from typing import Optional, Sequence
 
 import numpy as np
@@ -21,6 +29,11 @@ from deepvision_tpu_torch.engine.config import ModelConfig, get_model_config
 from deepvision_tpu_torch.engine.fuse import fuse_params
 from deepvision_tpu_torch.engine.kv_cache import CacheConfig, PageAllocator
 from deepvision_tpu_torch.engine.model import calibrate_kv_scales
+from deepvision_tpu_torch.engine.parallel import (
+    ShardPlan,
+    TPGroup,
+    shard_params,
+)
 from deepvision_tpu_torch.engine.quant import is_quantized, quantize_params
 from deepvision_tpu_torch.engine.runner import ModelRunner
 from deepvision_tpu_torch.engine.scheduler import (
@@ -82,18 +95,19 @@ class EngineConfig:
     # Weight-only int8 ("int8" | ""): block matmul weights and an untied
     # lm_head as int8 with per-output-channel scales (engine/quant.py).
     quantize: str = ""
-    # One matmul for q|k|v and one for gate|up (engine/fuse.py).
+    # One matmul for q|k|v and one for gate|up (engine/fuse.py); ignored
+    # under tensor parallelism, as in the JAX engine.
     fuse_projections: bool = False
-    # Settings of the JAX package the port has not ported: anything but
-    # the defaults raises NotImplementedError.
+    # Tensor-parallel degree (engine/parallel.py): ranks of one replica.
     tp: int = 1
+    # Vocab-sharded embedding and logits under tp > 1 (None: on for vocabs
+    # of ShardPlan.VOCAB_SHARD_MIN and more that divide by tp).
     vocab_sharded: Optional[bool] = None
 
 
+# Settings of the JAX package the port has not ported: anything but the
+# default raises NotImplementedError.
 _NOT_PORTED = (
-    ("tp", 1, "tensor parallelism comes with the multi-device slice"),
-    ("vocab_sharded", None, "the vocab-sharded embedding and logits come "
-                            "with the multi-device slice"),
     ("warmup_buckets", (128, 256, 512, 1024),
      "the warmup runs the runner's batch_buckets, which every prefill pads "
      "to; other warmup sizes have no counterpart"),
@@ -125,6 +139,11 @@ class LLMEngine:
         self.device = resolve_device(cfg.device)
         self.cfg = cfg
         self.model_cfg = model_cfg or get_model_config(cfg.model)
+        self.plan = None
+        if cfg.tp > 1:
+            self.plan = ShardPlan.for_model(self.model_cfg, cfg.tp,
+                                            vocab_sharded=cfg.vocab_sharded)
+            self.plan.check_kv_groups(self.model_cfg)
         self.tokenizer = get_tokenizer(cfg.tokenizer)
         self.cache_cfg = CacheConfig(
             num_pages=cfg.num_pages,
@@ -146,6 +165,8 @@ class LLMEngine:
         elif cfg.quantize:
             raise ValueError(f"unknown quantize mode {cfg.quantize!r}; "
                              "supported: int8")
+        if self.plan is not None:
+            params = shard_params(params, self.plan, self.model_cfg, 0)
 
         self.json_dfa = None
         if (cfg.json_dfa
@@ -176,6 +197,7 @@ class LLMEngine:
             dfa_dist=(self.json_dfa.dist
                       if self.json_dfa is not None else None),
             kv_scales=self.kv_scales,
+            plan=self.plan,
         )
         self.allocator = PageAllocator(cfg.num_pages)
         self.scheduler = ContinuousBatchingScheduler(
@@ -194,6 +216,8 @@ class LLMEngine:
         self.warmup_s = None
         self._started = False
         self._start_lock = threading.Lock()
+        self._workers = None
+        self._tp_ended = False
 
     # Calibration text of the JAX engine's boot (deepvision_tpu/engine/
     # engine.py): a representative interview prompt.
@@ -219,10 +243,59 @@ class LLMEngine:
     def start(self) -> None:
         with self._start_lock:
             if not self._started:
+                if self.plan is not None:
+                    self._start_workers()
                 if self.cfg.warmup:
                     self._warmup()
                 self.scheduler.start()
                 self._started = True
+
+    def _worker_spec(self) -> dict:
+        """What a worker rank builds its runner from: the same checkpoint or
+        seed, settings and grammar table as rank 0, and rank 0's int8 KV
+        scales (calibrated on the full raw params)."""
+        cfg, runner = self.cfg, self.runner
+        scales = (None if self.kv_scales is None else
+                  tuple(t.cpu().numpy() for t in self.kv_scales))
+        return {
+            "model_cfg": self.model_cfg, "plan": self.plan,
+            "cache_cfg": self.cache_cfg, "device": str(self.device),
+            "checkpoint_dir": cfg.checkpoint_dir, "seed": cfg.seed,
+            "quantize": cfg.quantize,
+            "runner_kw": dict(
+                max_slots=cfg.max_slots, rng_seed=cfg.seed,
+                chunked_prefill=cfg.chunked_prefill,
+                prefill_chunk_size=cfg.prefill_chunk_size,
+                batch_buckets=runner.batch_buckets,
+                dfa_table=(self.json_dfa.table
+                           if self.json_dfa is not None else None),
+                dfa_dist=(self.json_dfa.dist
+                          if self.json_dfa is not None else None),
+                kv_scales=scales),
+        }
+
+    def _start_workers(self) -> None:
+        """Spawn ranks 1..tp-1, wait until they have built their runners,
+        join the group with them and attach it to rank 0's runner."""
+        from deepvision_tpu_torch.engine import tp_workers
+
+        if self._tp_ended:
+            raise RuntimeError("a tensor-parallel engine does not restart "
+                               "after shutdown(): its workers' pools are "
+                               "gone; build a new engine")
+        workers = tp_workers.start_workers(self._worker_spec(), self.cfg.tp,
+                                           build_first=self.device)
+        self._workers = workers
+        self._finalizer = weakref.finalize(self, workers.stop)
+        try:
+            group = TPGroup.join(workers.store_path, 0, self.cfg.tp,
+                                 tp_workers.rank_device(self.device, 0))
+        except BaseException:
+            self._finalizer()
+            self._workers = None
+            raise
+        self.runner.group = group
+        self.runner.peers = workers
 
     def _warmup(self) -> None:
         """One padded prefill per batch bucket, one chunked prefill when the
@@ -256,11 +329,18 @@ class LLMEngine:
         self.warmup_s = round(time.monotonic() - t0, 3)
 
     def shutdown(self) -> None:
-        """Stop the scheduler and join its thread."""
+        """Stop the scheduler and join its thread; under TP, end the
+        worker ranks."""
         with self._start_lock:
             if self._started:
                 self.scheduler.shutdown()
                 self._started = False
+            if self._workers is not None:
+                self.runner.peers = None
+                self.runner.group = None
+                self._finalizer()
+                self._workers = None
+                self._tp_ended = True
 
     # ------------------------------------------------------------------
 
@@ -348,7 +428,12 @@ class LLMEngine:
         encoder: transformer forward + mean-pool, no LM head), built on
         first use with the engine's tokenizer.  Unavailable (returns None)
         when the params are int8-quantized or projection-fused, as in the
-        JAX engine: the encoder reads the unfused bf16 layout."""
+        JAX engine: the encoder reads the unfused bf16 layout.
+
+        Under TP the JAX engine embeds on its sharded serving params as one
+        global array; here rank 0 builds the unsharded params once (the
+        same ``load_or_init`` as the serving params), which costs a full
+        copy of the weights on rank 0's device."""
         if getattr(self, "_embedder", None) is None:
             blocks = self.runner.params.get("blocks") or {}
             if is_quantized(self.runner.params) or "wq" not in blocks:
@@ -357,10 +442,29 @@ class LLMEngine:
                 DocumentEmbedder,
             )
 
+            params = self.runner.params
+            if self.plan is not None:
+                params = load_or_init(self.model_cfg, self.cfg.checkpoint_dir,
+                                      self.cfg.seed, device=self.device)
             self._embedder = DocumentEmbedder(
-                self.model_cfg, params=self.runner.params,
-                tokenizer=self.tokenizer)
+                self.model_cfg, params=params, tokenizer=self.tokenizer)
         return self._embedder.embed_texts(texts)
+
+    def teacher_forced_logits(self, token_ids: Sequence[int],
+                              n_prompt: int) -> torch.Tensor:
+        """Float32 logits ``[len(token_ids) - n_prompt + 1, V]`` of the
+        serving forwards, teacher-forced over ``token_ids`` after a prompt
+        of ``n_prompt`` tokens (``ModelRunner.teacher_forced_logits``), into
+        pages allocated and freed here; under TP every rank takes part.
+        Call it on an idle engine: it runs the runner from this thread."""
+        self.start()
+        pages = self.allocator.alloc(-(-len(token_ids)
+                                       // self.cache_cfg.page_size))
+        try:
+            return self.runner.teacher_forced_logits(token_ids, n_prompt,
+                                                     pages).cpu()
+        finally:
+            self.allocator.free(pages)
 
     def stats(self) -> dict:
         s = self.scheduler
@@ -375,4 +479,21 @@ class LLMEngine:
         }
         if s.prefix_cache is not None:
             out["prefix_cache"] = s.prefix_cache.stats()
+        if self._workers is not None:
+            # each rank counts its own launches: fold the workers' counts
+            # into this process's counters and list every rank's
+            from deepvision_tpu_torch.engine.tp_workers import launch_counts
+
+            workers = self._workers.collect_launches()
+            group = self.runner.group
+            out["tp"] = {"ranks": self.cfg.tp, "backend": group.backend,
+                         "devices": [str(group.device)]
+                         + self._workers.devices,
+                         "vocab_sharded": self.plan.vocab_sharded,
+                         "kv_sharded": self.plan.kv_sharded,
+                         "worker_boot_s": self._workers.boot_s,
+                         "collectives": group.calls,
+                         "collective_wait_s": round(group.wait_s, 6),
+                         "launches": launch_counts(),
+                         "worker_launches": workers}
         return out

@@ -41,15 +41,17 @@ class CacheConfig:
 
 
 def init_cache(model: ModelConfig, cache: CacheConfig, *, device,
-               kv_scales=None) -> dict:
+               kv_scales=None, n_kv_heads=None) -> dict:
     """Per-layer page pools (one ``(k, v)`` pair per layer).
 
     int8 pools get static scales: ``kv_scales`` is ``(k_scales [L, KV],
     v_scales [L, KV])``, or 1/16 everywhere when not given (the JAX
     package's default for RMS-normed, RoPE-rotated heads).
+    ``n_kv_heads`` (default: the model's) is a tensor-parallel rank's
+    local kv-head count; ``kv_scales`` then holds that rank's heads.
     """
-    shape = (model.n_kv_heads, cache.num_pages, cache.page_size,
-             model.head_dim)
+    n_kv = model.n_kv_heads if n_kv_heads is None else n_kv_heads
+    shape = (n_kv, cache.num_pages, cache.page_size, model.head_dim)
     out = {
         "k": [torch.zeros(shape, dtype=cache.dtype, device=device)
               for _ in range(model.n_layers)],
@@ -58,8 +60,8 @@ def init_cache(model: ModelConfig, cache: CacheConfig, *, device,
     }
     if cache.quantized:
         if kv_scales is None:
-            ks = vs = torch.full((model.n_layers, model.n_kv_heads),
-                                 1.0 / 16.0, dtype=torch.float32)
+            ks = vs = torch.full((model.n_layers, n_kv), 1.0 / 16.0,
+                                 dtype=torch.float32)
         else:
             ks = torch.as_tensor(kv_scales[0], dtype=torch.float32)
             vs = torch.as_tensor(kv_scales[1], dtype=torch.float32)

@@ -11,6 +11,16 @@ Attention goes through the kernels package: the flash kernel for
 batched prefill, the paged chunk kernel for chunked prefill, the fused
 paged kernel for decode (each runs its plain version on CPU tensors).  The
 forwards write the KV pools in place.
+
+The serving forwards also run as one rank of a tensor-parallel group
+(``group``, a :class:`~deepvision_tpu_torch.engine.parallel.TPGroup`; None
+for one device), as the JAX forwards do under ``shard_map`` with
+``axis="model"``: the params are the rank's shard
+(``parallel.shard_params``), the local head counts come from the weights'
+shapes, an ``all_reduce`` sums the attention out-projection's and the MLP
+down-projection's partial products, and with ``vocab_sharded`` the
+embedding sums the owner rank's rows and the logits are the rank's own
+slice of the vocab.
 """
 
 from __future__ import annotations
@@ -115,7 +125,11 @@ def _qkv_proj(h, blk, cfg: ModelConfig, dtype=torch.bfloat16):
             qdot(h, blk["wv"], dtype))
 
 
-def _mlp(x, blk, compute_dtype=torch.bfloat16):
+def _psum(x: torch.Tensor, group) -> torch.Tensor:
+    return group.all_reduce(x) if group is not None else x
+
+
+def _mlp(x, blk, compute_dtype=torch.bfloat16, group=None):
     if "w_gate_up" in blk:
         gu = qdot(x, blk["w_gate_up"], compute_dtype)
         F = gu.shape[-1] // 2
@@ -124,15 +138,30 @@ def _mlp(x, blk, compute_dtype=torch.bfloat16):
         gate = qdot(x, blk["w_gate"], compute_dtype)
         up = qdot(x, blk["w_up"], compute_dtype)
     h = torch.nn.functional.silu(gate.float()).to(x.dtype) * up
-    return qdot(h, blk["w_down"], torch.float32).to(x.dtype)
+    return _psum(qdot(h, blk["w_down"], torch.float32), group).to(x.dtype)
 
 
-def _embed(params, tokens, dtype=torch.bfloat16):
-    return params["embed"][tokens.long()].to(dtype)
+def _embed(params, tokens, dtype=torch.bfloat16, group=None,
+           vocab_sharded: bool = False):
+    """Embedding lookup.  Vocab-sharded, each rank holds ``V / n`` rows:
+    the owner rank contributes a token's row, the others zeros, and an
+    ``all_reduce`` (exact: one addend is nonzero) gives every rank the
+    row."""
+    embed = params["embed"]
+    if group is None or not vocab_sharded:
+        return embed[tokens.long()].to(dtype)
+    v_local = embed.shape[0]
+    local = tokens.long() - group.rank * v_local
+    owns = (local >= 0) & (local < v_local)
+    rows = embed[local.clamp(0, v_local - 1)].float()
+    rows = torch.where(owns[..., None], rows, torch.zeros_like(rows))
+    return group.all_reduce(rows).to(dtype)
 
 
 def _logits(x, params, cfg: ModelConfig):
-    """x: [..., D] final hidden -> float32 logits [..., V]."""
+    """x: [..., D] final hidden -> float32 logits [..., V] (the rank's
+    ``[..., V / n]`` slice under vocab sharding: the embedding or the
+    untied ``lm_head`` it multiplies is the rank's shard)."""
     w = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
     if isinstance(w, dict):    # an int8 untied lm_head
         logits = qdot(x, w, torch.float32)
@@ -157,8 +186,9 @@ def _kv_scales(cache, i: int):
     return None, None
 
 
-def _scaled_embed(params, tokens, cfg, dtype=torch.bfloat16):
-    x = _embed(params, tokens, dtype)
+def _scaled_embed(params, tokens, cfg, dtype=torch.bfloat16, group=None,
+                  vocab_sharded: bool = False):
+    x = _embed(params, tokens, dtype, group, vocab_sharded)
     if cfg.scale_embeddings:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
     return x
@@ -170,7 +200,8 @@ def _scaled_embed(params, tokens, cfg, dtype=torch.bfloat16):
 
 @torch.no_grad()
 def forward_prefill(params, cache, tokens, seq_lens, prefill_pages, *,
-                    cfg: ModelConfig):
+                    cfg: ModelConfig, group=None,
+                    vocab_sharded: bool = False):
     """Run right-padded prompts through the model, writing their K/V pages.
 
     Args:
@@ -183,7 +214,8 @@ def forward_prefill(params, cache, tokens, seq_lens, prefill_pages, *,
     """
     B, S = tokens.shape
     HD = cfg.head_dim
-    x = _scaled_embed(params, tokens, cfg)
+    x = _scaled_embed(params, tokens, cfg, group=group,
+                      vocab_sharded=vocab_sharded)
     rope = rope_tables(torch.arange(S, device=tokens.device), HD,
                        cfg.rope_theta)
     for i in range(cfg.n_layers):
@@ -200,8 +232,10 @@ def forward_prefill(params, cache, tokens, seq_lens, prefill_pages, *,
             q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
             v.transpose(1, 2).contiguous(), seq_lens)   # [B, H, S, HD]
         attn = attn.transpose(1, 2).reshape(B, S, -1)
-        x = x + qdot(attn, blk["wo"], torch.float32).to(x.dtype)
-        x = x + _mlp(rms_norm(x, blk["ln2"], cfg.rms_eps), blk)
+        x = x + _psum(qdot(attn, blk["wo"], torch.float32),
+                     group).to(x.dtype)
+        x = x + _mlp(rms_norm(x, blk["ln2"], cfg.rms_eps), blk,
+                     group=group)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
     last = x[torch.arange(B, device=x.device), seq_lens.long() - 1]
     return _logits(last, params, cfg)
@@ -209,7 +243,8 @@ def forward_prefill(params, cache, tokens, seq_lens, prefill_pages, *,
 
 @torch.no_grad()
 def forward_prefill_chunk(params, cache, tokens, chunk_starts, seq_lens,
-                          block_tables, *, cfg: ModelConfig):
+                          block_tables, *, cfg: ModelConfig, group=None,
+                          vocab_sharded: bool = False):
     """One chunk of chunked prefill: write the chunk's K/V rows, then attend
     over every page up to each query's position.
 
@@ -225,7 +260,8 @@ def forward_prefill_chunk(params, cache, tokens, chunk_starts, seq_lens,
     """
     B, C = tokens.shape
     HD = cfg.head_dim
-    x = _scaled_embed(params, tokens, cfg)
+    x = _scaled_embed(params, tokens, cfg, group=group,
+                      vocab_sharded=vocab_sharded)
     positions = (chunk_starts.long()[:, None]
                  + torch.arange(C, device=tokens.device)[None, :])
     rope = rope_tables(positions, HD, cfg.rope_theta)
@@ -243,9 +279,10 @@ def forward_prefill_chunk(params, cache, tokens, chunk_starts, seq_lens,
         attn = paged_chunk_attention(
             q.contiguous(), cache["k"][i], cache["v"][i], block_tables,
             chunk_starts, chunk_end, k_scale=ksc, v_scale=vsc)
-        x = x + qdot(attn.reshape(B, C, -1), blk["wo"],
-                     torch.float32).to(x.dtype)
-        x = x + _mlp(rms_norm(x, blk["ln2"], cfg.rms_eps), blk)
+        x = x + _psum(qdot(attn.reshape(B, C, -1), blk["wo"],
+                           torch.float32), group).to(x.dtype)
+        x = x + _mlp(rms_norm(x, blk["ln2"], cfg.rms_eps), blk,
+                     group=group)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
     last_row = (seq_lens.long() - 1 - chunk_starts.long()).clamp(0, C - 1)
     last = x[torch.arange(B, device=x.device), last_row]
@@ -254,7 +291,8 @@ def forward_prefill_chunk(params, cache, tokens, chunk_starts, seq_lens,
 
 @torch.no_grad()
 def forward_decode(params, cache, tokens, seq_lens, block_tables, *,
-                   cfg: ModelConfig, splits=None):
+                   cfg: ModelConfig, splits=None, group=None,
+                   vocab_sharded: bool = False):
     """One continuous-batching decode step.
 
     Args:
@@ -269,7 +307,8 @@ def forward_decode(params, cache, tokens, seq_lens, block_tables, *,
     """
     B = tokens.shape[0]
     HD = cfg.head_dim
-    x = _scaled_embed(params, tokens, cfg)
+    x = _scaled_embed(params, tokens, cfg, group=group,
+                      vocab_sharded=vocab_sharded)
     rope = rope_tables(seq_lens - 1, HD, cfg.rope_theta)
     for i in range(cfg.n_layers):
         blk = _layer(params, i)
@@ -283,9 +322,10 @@ def forward_decode(params, cache, tokens, seq_lens, block_tables, *,
             q.contiguous(), k.contiguous(), v.contiguous(), cache["k"][i],
             cache["v"][i], block_tables, seq_lens, k_scale=ksc, v_scale=vsc,
             splits=splits)
-        x = x + qdot(attn.reshape(B, -1), blk["wo"],
-                     torch.float32).to(x.dtype)
-        x = x + _mlp(rms_norm(x, blk["ln2"], cfg.rms_eps), blk)
+        x = x + _psum(qdot(attn.reshape(B, -1), blk["wo"],
+                           torch.float32), group).to(x.dtype)
+        x = x + _mlp(rms_norm(x, blk["ln2"], cfg.rms_eps), blk,
+                     group=group)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
     return _logits(x, params, cfg)
 

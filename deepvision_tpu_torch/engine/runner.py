@@ -24,6 +24,17 @@ Inactive slots point at the trash page, so the decode batch has one fixed
 shape.  The pools are updated in place, and every step runs on the
 device's current stream, so chunks and decode steps follow each other in
 the order they were issued.
+
+Tensor parallelism (``plan``, ``engine/parallel.py``): the runner is one
+rank's.  Its params are the rank's shard, its pools hold the rank's kv
+heads (all of them when K/V is replicated), and a vocab-sharded grammar
+table its slice of the vocab.  Before the first step the engine attaches
+the group (``group``) and, on rank 0, the workers (``peers``,
+``engine/tp_workers.py``): each public step on rank 0 first sends its host
+inputs to the workers, whose runners run the same step, and the ranks meet
+in the step's collectives.  A chained decode call's device-resident
+tokens and grammar states are not sent: each rank chains from its own
+last call (:data:`CHAINED`).
 """
 
 from __future__ import annotations
@@ -37,6 +48,7 @@ from deepvision_tpu_torch.engine import model as model_lib
 from deepvision_tpu_torch.engine.config import ModelConfig
 from deepvision_tpu_torch.engine.kernels.paged_attention import decode_splits
 from deepvision_tpu_torch.engine.kv_cache import CacheConfig, init_cache
+from deepvision_tpu_torch.engine.parallel import ShardPlan, shard
 from deepvision_tpu_torch.engine.sampling import (
     pack_dfa_table,
     sample_tokens_constrained,
@@ -44,6 +56,9 @@ from deepvision_tpu_torch.engine.sampling import (
 
 PREFILL_BUCKETS = (128, 256, 512, 1024, 2048, 4096, 8192)
 NO_BUDGET = 1 << 20  # "unlimited" slot budget sentinel
+# what rank 0 sends in place of a chained decode call's device-resident
+# tokens or grammar states: each worker takes its own last call's
+CHAINED = "chained"
 
 
 def pick_bucket(n: int, buckets: Sequence[int] = PREFILL_BUCKETS) -> int:
@@ -84,8 +99,15 @@ class ModelRunner:
         dfa_table=None,
         dfa_dist=None,
         kv_scales=None,
+        plan: Optional[ShardPlan] = None,
+        rank: int = 0,
     ):
         self.device = torch.device(device)
+        self.plan = plan
+        self.rank = rank
+        self.group = None   # the TP group (parallel.TPGroup), under a plan
+        self.peers = None   # rank 0's workers (tp_workers.TPWorkers)
+        self._chain = (None, None)
         self.chunked_prefill = chunked_prefill
         self.prefill_chunk_size = prefill_chunk_size
         self.cfg = cfg
@@ -106,8 +128,17 @@ class ModelRunner:
                 table = np.concatenate([table, pad], axis=1)
         dist = (np.zeros(table.shape[0], dtype=np.int32) if dfa_dist is None
                 else np.asarray(dfa_dist, dtype=np.int32))
-        self._dfa_packed = torch.from_numpy(
-            pack_dfa_table(table, dist)).to(self.device)
+        packed = torch.from_numpy(pack_dfa_table(table, dist))
+        n_kv = cfg.n_kv_heads
+        if plan is not None:
+            packed = shard(packed, plan.dfa_dim(), rank, plan.n_model)
+            if plan.kv_sharded:
+                n_kv //= plan.n_model
+                if kv_scales is not None:
+                    kv_scales = tuple(
+                        shard(torch.as_tensor(s), 1, rank, plan.n_model)
+                        for s in kv_scales)
+        self._dfa_packed = packed.to(self.device)
         # Canonical buckets of the batched admission path: powers of two
         # from 256 up to the context maximum.
         max_bucket = cache_cfg.max_pages_per_seq * cache_cfg.page_size
@@ -122,9 +153,30 @@ class ModelRunner:
         ) or (max_bucket,)
         self.params = params
         self.cache = init_cache(cfg, cache_cfg, device=self.device,
-                                kv_scales=kv_scales)
+                                kv_scales=kv_scales, n_kv_heads=n_kv)
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(rng_seed)
+
+    def _mirror(self, op: str, **kw) -> None:
+        """Rank 0 under TP: send a step's host inputs to the workers, which
+        run ``op`` with them on their own runners."""
+        if self.peers is not None:
+            self.peers.send(op, kw)
+
+    def _tp(self) -> dict:
+        """The forwards' tensor-parallel arguments."""
+        if self.plan is None:
+            return {}
+        if self.group is None:
+            raise RuntimeError("a tensor-parallel runner steps only after "
+                               "its group is attached (LLMEngine.start)")
+        return {"group": self.group,
+                "vocab_sharded": self.plan.vocab_sharded}
+
+    def _sample_group(self):
+        """The sampler's group: set only when the logits are vocab
+        slices."""
+        return self.group if self.plan and self.plan.vocab_sharded else None
 
     def _tensor(self, arr, dtype) -> torch.Tensor:
         """``arr`` as a ``dtype`` tensor on the runner's device.  A tensor
@@ -170,6 +222,10 @@ class ModelRunner:
         """Prefill several fresh prompts in one padded batch; returns the
         first sampled token of each.  Padded rows write into the trash
         page."""
+        self._mirror("prefill_batch", prompts=[list(p) for p in prompts],
+                     pages_list=[list(p) for p in pages_list],
+                     temperatures=temperatures, top_ks=top_ks, top_ps=top_ps,
+                     dfa_states=dfa_states, budgets=budgets)
         n_real = len(prompts)
         B = 1
         while B < n_real:
@@ -200,7 +256,7 @@ class ModelRunner:
             logits = model_lib.forward_prefill(
                 self.params, self.cache, self._tensor(toks, torch.int32),
                 self._tensor(seq_lens, torch.int32),
-                self._tensor(pages, torch.int32), cfg=self.cfg)
+                self._tensor(pages, torch.int32), cfg=self.cfg, **self._tp())
             tok, _ = sample_tokens_constrained(
                 logits, self._gen,
                 self._tensor(fill(temperatures, 0.0, np.float32),
@@ -210,7 +266,8 @@ class ModelRunner:
                 self._tensor(fill(dfa_states, 0, np.int32), torch.int32),
                 self._dfa_packed,
                 budgets=self._tensor(fill(budgets, NO_BUDGET, np.int32),
-                                     torch.int32))
+                                     torch.int32),
+                group=self._sample_group())
         return tok.cpu().tolist()[:n_real]
 
     def prefill(
@@ -272,6 +329,10 @@ class ModelRunner:
         waiting for the device: chunks chain through the pools on the
         current stream, and the caller reads only the last chunk's token.
         """
+        self._mirror("prefill_chunk_step", token_ids=list(token_ids),
+                     page_ids=list(page_ids), start=start,
+                     temperature=temperature, top_k=top_k, top_p=top_p,
+                     dfa_state=dfa_state, budget=budget, sync=False)
         n = len(token_ids)
         C = self.prefill_chunk_size
         MP = self.cache_cfg.max_pages_per_seq
@@ -286,7 +347,7 @@ class ModelRunner:
                 self.params, self.cache, self._tensor(chunk, torch.int32),
                 self._tensor([start], torch.int32),
                 self._tensor([n], torch.int32),
-                self._tensor(bt, torch.int32), cfg=self.cfg)
+                self._tensor(bt, torch.int32), cfg=self.cfg, **self._tp())
             tok, _ = sample_tokens_constrained(
                 logits, self._gen,
                 self._tensor([temperature], torch.float32),
@@ -295,7 +356,8 @@ class ModelRunner:
                 self._tensor([dfa_state], torch.int32),
                 self._dfa_packed,
                 budgets=self._tensor([budget if budget else NO_BUDGET],
-                                     torch.int32))
+                                     torch.int32),
+                group=self._sample_group())
         return int(tok[0]) if sync else tok
 
     def decode(
@@ -340,6 +402,27 @@ class ModelRunner:
             dfa_states = np.zeros(B, np.int32)
         if budgets is None:
             budgets = np.full(B, NO_BUDGET, np.int32)
+        if self.peers is not None:
+            # the last call's device-resident output (pipelined decode):
+            # every worker holds its own copy of it
+            def host(a, i):
+                if a is self._chain[i]:
+                    return CHAINED
+                if isinstance(a, torch.Tensor):
+                    return a.cpu().numpy()
+                return np.asarray(a)
+
+            self._mirror("decode_async", tokens=host(tokens, 0),
+                         seq_lens=np.asarray(seq_lens),
+                         block_tables=np.asarray(block_tables),
+                         temperature=np.asarray(temperature),
+                         top_k=np.asarray(top_k), top_p=np.asarray(top_p),
+                         n_steps=n_steps, dfa_states=host(dfa_states, 1),
+                         budgets=np.asarray(budgets))
+        if isinstance(tokens, str):
+            tokens = self._chain[0]
+        if isinstance(dfa_states, str):
+            dfa_states = self._chain[1]
         toks = self._tensor(tokens, torch.int32)
         lens = self._tensor(seq_lens, torch.int32)
         bt = self._tensor(block_tables, torch.int32)
@@ -355,19 +438,61 @@ class ModelRunner:
         splits = None
         if self.device.type == "cuda":
             active = max(1, int((np.asarray(seq_lens) > 1).sum()))
-            splits = decode_splits(active, self.cfg.n_kv_heads,
+            splits = decode_splits(active, self.cache["k"][0].shape[0],
                                    self.cache_cfg.max_pages_per_seq,
                                    self.device)
         outs = []
+        tp = self._tp()
         with torch.no_grad():
             for _ in range(n_steps):
                 logits = model_lib.forward_decode(
                     self.params, self.cache, toks, lens, bt, cfg=self.cfg,
-                    splits=splits)
+                    splits=splits, **tp)
                 toks, states = sample_tokens_constrained(
                     logits, self._gen, temp, topk, topp, states,
-                    self._dfa_packed, budgets=rem)
+                    self._dfa_packed, budgets=rem,
+                    group=self._sample_group())
                 outs.append(toks)
                 lens = lens + 1
                 rem = rem - 1
+        self._chain = (toks, states)
         return torch.stack(outs), toks, states
+
+    def teacher_forced_logits(self, token_ids: Sequence[int], n_prompt: int,
+                              page_ids: Sequence[int]) -> torch.Tensor:
+        """Float32 logits ``[len(token_ids) - n_prompt + 1, V]`` (full vocab
+        on every rank) of a teacher-forced pass: the first ``n_prompt``
+        tokens prefill (the first row predicts token ``n_prompt``), then
+        each later token is fed to one decode step.  Writes the pages
+        ``page_ids``, which must hold ``len(token_ids)`` tokens; samples
+        nothing.  For checks of the served forwards (one rank against
+        several, the port against the JAX package)."""
+        self._mirror("teacher_forced_logits", token_ids=list(token_ids),
+                     n_prompt=n_prompt, page_ids=list(page_ids))
+        page = self.cache_cfg.page_size
+        MP = self.cache_cfg.max_pages_per_seq
+        bucket = pick_bucket(n_prompt, self.batch_buckets)
+        toks = np.zeros((1, bucket), np.int32)
+        toks[0, :n_prompt] = token_ids[:n_prompt]
+        pages = np.zeros((1, bucket // page), np.int32)
+        used = min(len(page_ids), bucket // page)
+        pages[0, :used] = page_ids[:used]
+        bt = np.zeros((1, MP), np.int32)
+        bt[0, :min(len(page_ids), MP)] = page_ids[:MP]
+        tp = self._tp()
+        with torch.no_grad():
+            rows = [model_lib.forward_prefill(
+                self.params, self.cache, self._tensor(toks, torch.int32),
+                self._tensor([n_prompt], torch.int32),
+                self._tensor(pages, torch.int32), cfg=self.cfg, **tp)]
+            bt_t = self._tensor(bt, torch.int32)
+            for t in range(n_prompt, len(token_ids)):
+                rows.append(model_lib.forward_decode(
+                    self.params, self.cache,
+                    self._tensor([token_ids[t]], torch.int32),
+                    self._tensor([t + 1], torch.int32), bt_t, cfg=self.cfg,
+                    **tp))
+        logits = torch.cat(rows)
+        if self._sample_group() is not None:
+            logits = self.group.all_gather(logits, dim=-1)
+        return logits

@@ -15,8 +15,14 @@ Two divergences from the JAX package's ``engine/sampling.py``:
   candidates), not from ``jax.random``; the two streams differ, so
   temperature > 0 agrees with the JAX package only in distribution.
 
-Only the unsharded path is ported: the vocabulary-sharded candidate merge
-belongs to the multi-device slice.
+Vocab-sharded mode (``group`` set, a tensor-parallel
+:class:`~deepvision_tpu_torch.engine.parallel.TPGroup`): each rank holds
+``[B, V / n]`` logits of its own slice of the vocab.  Each rank takes its
+local top-``MAX_K``, one ``all_gather`` unites the ranks' candidates with
+their global ids, and the global top-k is picked from the union; ties go
+to the lower global id, as ``lax.top_k`` gives them in the JAX package.
+Every rank draws from its own identically seeded and identically advanced
+generator over identical candidates, so all ranks hold the same token.
 """
 
 from __future__ import annotations
@@ -30,17 +36,45 @@ _NEG_INF = -1e30
 MAX_K = 64
 
 
+def _top_k_stable(x: torch.Tensor, k: int):
+    """``(values, indices)`` of the ``k`` largest along the last axis,
+    ties in index order (a stable sort), as ``lax.top_k``."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _global_candidates(logits: torch.Tensor, group):
+    """Local ``[B, V_local]`` logits -> the merged top candidates
+    ``(vals, idx)`` ``[B, K]`` with global token ids, the same on every
+    rank."""
+    B, v_local = logits.shape
+    vals, idx = _top_k_stable(logits, min(MAX_K, v_local))
+    idx = idx + group.rank * v_local
+    # one all_gather for both: ids are exact in float32 below 2**24
+    both = group.all_gather(torch.stack([vals, idx.float()]), dim=-1)
+    vals, idx = both[0], both[1].long()      # [B, n * K_local], rank order
+    merged_vals, pos = _top_k_stable(vals, min(MAX_K, vals.shape[-1]))
+    return merged_vals, torch.gather(idx, 1, pos)
+
+
 def sample_tokens(
-    logits: torch.Tensor,        # [B, V] float32
+    logits: torch.Tensor,        # [B, V] float32 (local [B, V/n] w/ group)
     generator: torch.Generator,
     temperature: torch.Tensor,   # [B] (0 => greedy)
     top_k: torch.Tensor,         # [B] int32 (0 => disabled)
     top_p: torch.Tensor,         # [B] (1.0 => disabled)
+    group=None,
 ) -> torch.Tensor:
-    """Returns ``[B]`` int32 sampled token ids."""
-    k_cand = min(MAX_K, logits.shape[-1])
-    top_vals, top_idx = torch.topk(logits, k_cand, dim=-1)
-    greedy = torch.argmax(logits, dim=-1)
+    """Returns ``[B]`` int32 sampled token ids (global ids under vocab
+    sharding)."""
+    if group is not None:
+        top_vals, top_idx = _global_candidates(logits, group)
+        greedy = top_idx[:, 0]
+    else:
+        k_cand = min(MAX_K, logits.shape[-1])
+        top_vals, top_idx = torch.topk(logits, k_cand, dim=-1)
+        greedy = torch.argmax(logits, dim=-1)
+    k_cand = top_vals.shape[-1]
 
     temp = torch.clamp(temperature, min=1e-4)[:, None]
     scaled = top_vals / temp                                   # [B, K]
@@ -61,15 +95,16 @@ def sample_tokens(
 
 
 def sample_tokens_constrained(
-    logits: torch.Tensor,        # [B, V] float32
+    logits: torch.Tensor,        # [B, V] float32 (local [B, V/n] w/ group)
     generator: torch.Generator,
     temperature: torch.Tensor,   # [B]
     top_k: torch.Tensor,         # [B]
     top_p: torch.Tensor,         # [B]
     dfa_states: torch.Tensor,    # [B] int32 — row of the table (0 = FREE)
-    dfa_table: torch.Tensor,     # [S, V] packed int32 (see below)
+    dfa_table: torch.Tensor,     # [S, V] packed int32 (local [S, V/n])
     *,
     budgets: Optional[torch.Tensor] = None,  # [B] tokens left, incl. this
+    group=None,
 ):
     """Grammar-constrained sampling over the PACKED table (the serving
     runner's form): each entry is ``(min(dist[next], 32767) << 16) |
@@ -79,6 +114,12 @@ def sample_tokens_constrained(
     remaining tokens are masked too, so output cut at ``max_tokens`` still
     parses; when nothing can close any more the plain grammar mask applies.
     Returns ``(tokens [B] int32, next_states [B] int32)``.
+
+    Under vocab sharding (``group``) the logits and the table are the
+    rank's vocab slice: the mask applies rank-locally, whether any token
+    can still close is summed over the ranks, and the next state comes
+    from the rank that owns the sampled token (the others add 0 in a
+    one-int ``all_reduce``).
     """
     g = dfa_table[dfa_states.long()]                          # [B, V]
     rows = (g & 0xFFFF) - 1
@@ -88,11 +129,23 @@ def sample_tokens_constrained(
         bud = torch.clamp(budgets - 1, max=32766)[:, None]
         can_close = allowed & (nxt_dist <= bud)
         some = can_close.any(dim=-1, keepdim=True)
+        if group is not None:
+            some = group.all_reduce(some.to(torch.int32)) > 0
         allowed = torch.where(some, can_close, allowed)
     masked = torch.where(allowed, logits, torch.full_like(logits, _NEG_INF))
-    tok = sample_tokens(masked, generator, temperature, top_k, top_p)
-    new_states = torch.gather(rows, 1, tok.long()[:, None])[:, 0]
-    return tok, new_states.to(torch.int32)
+    tok = sample_tokens(masked, generator, temperature, top_k, top_p,
+                        group=group)
+    if group is None:
+        new_states = torch.gather(rows, 1, tok.long()[:, None])[:, 0]
+        return tok, new_states.to(torch.int32)
+    v_local = rows.shape[-1]
+    local = tok.long() - group.rank * v_local
+    owns = (local >= 0) & (local < v_local)
+    mine = torch.gather(rows, 1, local.clamp(0, v_local - 1)[:, None])[:, 0]
+    # a sampled token is allowed, so its owner's next state is >= 0
+    new_states = group.all_reduce(
+        torch.where(owns, mine, torch.zeros_like(mine)).to(torch.int32))
+    return tok, new_states
 
 
 def pack_dfa_table(table, dist):

@@ -13,7 +13,7 @@ run their plain versions.
 
 The trainer runs on a CUDA device unless the caller passes
 ``device="cpu"``; the multi-device (mesh / shard plan) path comes with the
-multi-device slice.
+next multi-device slice (tensor-parallel serving came first).
 """
 
 from __future__ import annotations
@@ -213,8 +213,9 @@ class Trainer:
     ):
         if mesh is not None or plan is not None:
             raise NotImplementedError(
-                "Trainer(mesh=..., plan=...): sharded training comes with "
-                "the multi-device slice")
+                "Trainer(mesh=..., plan=...): DP x TP training comes with "
+                "the next multi-device slice (after TP serving), with ring "
+                "attention and pipeline parallelism")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.tx = tx if tx is not None else AdamW(learning_rate)

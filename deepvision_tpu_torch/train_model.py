@@ -91,8 +91,9 @@ def main(argv=None) -> None:
     args = parse_args(argv)
     if args.pp > 1:
         raise NotImplementedError(
-            "--pp > 1: pipeline-parallel training comes with the "
-            "multi-device slice")
+            "--pp > 1: pipeline-parallel training comes with the next "
+            "multi-device slice (after TP serving), with DP x TP training "
+            "and ring attention")
 
     from deepvision_tpu_torch.engine import model as model_lib
     from deepvision_tpu_torch.engine.config import get_model_config

@@ -205,16 +205,15 @@ def test_engine_raises_without_cuda_unless_asked_for_cpu():
     {"pipeline_decode": True},
 ])
 def test_unported_settings_raise(setting, tiny_npz):
-    """``tp`` and ``vocab_sharded`` still raise NotImplementedError.  The
-    name is the one this test had while ``quantize``,
-    ``fuse_projections`` and ``pipeline_decode`` raised too: those are
-    ported now, and for them the test asserts that the engine builds on
-    the CPU and serves the JAX engine's greedy tokens under the same
-    setting, over the golden window (tests/test_engine_golden.py), K=3."""
-    if "tp" in setting or "vocab_sharded" in setting:
-        with pytest.raises(NotImplementedError):
-            LLMEngine(EngineConfig(**TINY, device="cpu", **setting))
-        return
+    """The name is the one this test had while these settings raised
+    NotImplementedError; all five are ported now (``tp`` and
+    ``vocab_sharded`` with tensor-parallel serving, which spawns the
+    worker ranks on ``start()``), and for each the test asserts that the
+    engine builds on the CPU and serves the JAX engine's greedy tokens
+    under the same setting, over the golden window
+    (tests/test_engine_golden.py), K=3, and leaves no process behind."""
+    import multiprocessing
+
     from deepvision_tpu.engine.engine import EngineConfig as JEngineConfig
     from deepvision_tpu.engine.engine import LLMEngine as JLLMEngine
 
@@ -235,6 +234,7 @@ def test_unported_settings_raise(setting, tiny_npz):
         eng.shutdown()
     assert got is not None and got.ok, got
     assert got.token_ids == want.token_ids
+    assert not multiprocessing.active_children()
 
 
 def test_embed_texts_is_not_ported_yet(tiny_npz):
