@@ -155,14 +155,33 @@ Phases, each printing one JSON line with its own seconds:
    a step, one step at B=2 must agree with the plain attention through
    autograd (loss and every gradient leaf), and ``save_npz`` ->
    ``load_or_init`` must give back the same bits; one step is profiled;
-18. the card's name and power limit again, then the ``kernels`` line the
+18. train_parallel — multi-device training, every rank a spawned process
+   on ``cuda:0`` over gloo: dv-base at full width and depth through
+   ``Trainer(mesh, plan)`` on a DP2 x TP2 mesh (float32 params from seed
+   0, batch 8 x 2,049, ``train_model.py``'s chain, the flash kernels, 3
+   steps): the losses must be finite and equal on every rank, the first
+   step's loss and gradients within phase ``train``'s bf16 bounds of a
+   one-rank ``Trainer`` on the same weights and batch and the params after
+   it bit-equal to the one rank's, and #2, #4 and #5 must launch 12 times
+   a step on every rank (step ms, host ms in collectives, the ranks' skew
+   and peak memory are reported); ``ring_attention`` over 2 ranks at
+   dv-base's attention width (B 1, H 6, KV 2, HD 128, S 8,192, the row
+   padded to 7,000) within 2e-5 of plain float32 attention; ``python -m
+   deepvision_tpu_torch.train_model --pp 2 --pp-micro 4`` on dv-base
+   (batch 8 x 2,048, 2 steps, a seeded corpus) must exit 0 with its
+   stages line and a checkpoint of 12-layer stacks, and the pipeline's
+   float32 loss on fixed weights and batch must equal one device's at
+   1e-5 relative.  Phase ``kernels`` also runs #2, #4 and #5 at the DP2 x
+   TP2 shard shape;
+19. the card's name and power limit again, then the ``kernels`` line the
    benchmark contract reads (seven kernels, each with its achieved
    TFLOP/s, whether it computes on the tensor cores or in fp32 on the
    CUDA cores and, for the kernels that split columns, the split count
    and the time unsplit, phases ``app``'s and ``ops``' launches of #1-#3,
-   and phase ``engine_tp``'s launches and shard-shape cases of #1-#3),
-   after the whole run's seconds;
-19. shutdown, then the last line ``{"ok": true, "device": {...}}``.
+   phase ``engine_tp``'s launches and shard-shape cases of #1-#3, and
+   phase ``train_parallel``'s launches and shard-shape cases of #2, #4
+   and #5), after the whole run's seconds;
+20. shutdown, then the last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the script exits non-zero without the last
 line.  Without CUDA it exits 2 before any phase.
@@ -1051,6 +1070,20 @@ def tp_shard_cases(gen) -> dict:
     return out
 
 
+def train_shard_cases(gen) -> dict:
+    """#2, #4 and #5 at the shard shape phase ``train_parallel``'s DP2 x
+    TP2 step gives them on dv-base: 4 of the batch's 8 rows a data rank,
+    H 6 / KV 2 cut to 3 / 1 a model rank, S 2,048, head dim 128, bf16.
+    Returns the cases by kernel name."""
+    bf16 = torch.bfloat16
+    out = {"flash_fwd": _flash_case(
+        "dp2tp2_dvbase_b4_s2048", 4, 3, 1, 2048, 128, [2048] * 4, bf16, gen,
+        iters=10, profiled=True)}
+    out.update(_bwd_case("dp2tp2_dvbase_b4_s2048", 4, 3, 1, 2048, 128,
+                         [2048] * 4, bf16, gen, iters=5))
+    return out
+
+
 def phase_kernels() -> dict:
     t0 = time.monotonic()
     gen = torch.Generator(device="cuda")
@@ -1082,9 +1115,10 @@ def phase_kernels() -> dict:
     chunk = chunk_cases(gen)
     bwd = bwd_cases(gen)
     tp = tp_shard_cases(gen)
+    train_shard = train_shard_cases(gen)
     emit({"phase": "kernels_done", "seconds": time.monotonic() - t0})
     return {"flash_fwd": flash[0], "paged_chunk": chunk, **bwd, **decode,
-            "tp_shard": tp}
+            "tp_shard": tp, "train_shard": train_shard}
 
 
 def _report_prompts(tokenizer, targets):
@@ -3881,6 +3915,492 @@ def phase_train() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase train_parallel: DP x TP, ring attention (SP), GPipe (PP)
+# ---------------------------------------------------------------------------
+
+# DP2 x TP2 on dv-base: 4 ranks on one card, phase train's batch and chain
+TP_TRAIN = dict(n_data=2, n_model=2, batch=8, seq=2048, steps=3, lr=3e-4)
+# the first step against one rank, bf16 activations on both sides: phase
+# train's kernel-vs-plain bounds (each bf16 rounding up to 2^-8 relative,
+# compounded over 12 layers and the backward; here the partial products
+# are summed over the ranks in another order)
+TP_LOSS_REL, TP_GRAD_REL = 1e-3, 5e-2
+# SP: dv-base's attention width at a sequence two ranks cut in half
+SP_SHAPE = dict(B=1, H=6, KV=2, S=8192, HD=128, length=7000)
+SP_TOL = 2e-5
+# PP: train_model.py --pp on dv-base
+PP_ARGS = ["--model", "dv-base", "--pp", "2", "--pp-micro", "4",
+           "--batch", "8", "--seq", "2048", "--steps", "2"]
+PP_LOSS_REL = 1e-5
+RANKS_TIMEOUT_S = 600.0
+# the phase's model and device (a rehearsal on the CPU sets them smaller)
+TRAIN_PARALLEL_MODEL, TRAIN_PARALLEL_DEVICE = "dv-base", "cuda"
+
+
+def _cuda_rank_setup(device) -> None:
+    """A spawned rank's card: its device current, TF32 off (as in
+    :func:`main`), the kernel library that phase ``build`` built loaded."""
+    from deepvision_tpu_torch.engine.kernels import _build
+
+    if device.type != "cuda":
+        return
+    torch.cuda.set_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.library()
+
+
+def _np_tree_of(tree) -> dict:
+    """Copies of the tree's leaves as float32 numpy arrays, by flat name."""
+    return {name: np.array(leaf.detach().float().cpu().numpy())
+            for name, leaf in _flat(tree)}
+
+
+def _dp_tp_rank(rank: int, store_path: str, spec: dict) -> dict:
+    """One rank of the DP2 x TP2 run (a spawned process): ``Trainer(mesh,
+    plan)`` on dv-base, 3 steps on the global batch.  Returns its losses,
+    step times, launches, collectives and peak memory; rank 0 also the
+    first step's gradients and the params after step 1 and after the last
+    step, gathered over its model group (numpy)."""
+    from deepvision_tpu_torch.engine.config import get_model_config
+    from deepvision_tpu_torch.engine.kernels import flash_attention as fa
+    from deepvision_tpu_torch.engine.parallel import (
+        ShardPlan,
+        gather_params,
+        make_mesh,
+    )
+    from deepvision_tpu_torch.engine.training import (
+        Trainer,
+        train_model_chain,
+    )
+
+    t_spawned = time.time()
+    mesh = make_mesh(spec["n_model"], spec["n_data"], rank=rank,
+                     store_path=store_path, device=spec["device"])
+    _cuda_rank_setup(mesh.device)
+    cfg = get_model_config(spec["model"])
+    plan = ShardPlan.for_model(cfg, spec["n_model"])
+    trainer = Trainer(cfg, mesh=mesh, plan=plan,
+                      tx=train_model_chain(*spec["chain"]), seed=SEED,
+                      param_dtype=torch.float32, use_kernel=True)
+    batch = spec["tokens"]
+    counters = (fa.flash_attention, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    for fn in counters:
+        fn.launches = 0
+    groups = (mesh.model, mesh.data)
+    sync = (torch.cuda.synchronize if mesh.device.type == "cuda"
+            else lambda: None)
+    sync()
+    if mesh.device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    ready = time.time()
+    losses, step_ms, wait_ms, calls = [], [], [], []
+    grads = params1 = None
+    for step in range(spec["steps"]):
+        w0 = sum(g.wait_s for g in groups)
+        c0 = sum(g.calls for g in groups)
+        t = time.monotonic()
+        losses.append(trainer.train_step_async(batch))
+        sync()
+        step_ms.append((time.monotonic() - t) * 1e3)
+        wait_ms.append((sum(g.wait_s for g in groups) - w0) * 1e3)
+        calls.append(sum(g.calls for g in groups) - c0)
+        if step == 0:
+            first_done = time.time()
+            grads = gather_params(
+                {n: p.grad for n, p in _flat(trainer.params)},
+                {n: d for n, d in _flat(plan.param_dims(cfg))}, mesh.model)
+            params1 = trainer.full_params()
+            if rank == 0:
+                grads, params1 = _np_tree_of(grads), _np_tree_of(params1)
+    peak_gb = (torch.cuda.max_memory_allocated() / 1e9
+               if mesh.device.type == "cuda" else None)
+    launches = {"flash_fwd": fa.flash_attention.launches,
+                "flash_bwd_dq": fa.flash_bwd_dq.launches,
+                "flash_bwd_dkv": fa.flash_bwd_dkv.launches}
+    params = trainer.full_params()
+    out = {"rank": rank, "data_index": mesh.data_index,
+           "model_index": mesh.model_index, "device": str(mesh.device),
+           "losses": [float(x) for x in losses], "step_ms": step_ms,
+           "collective_ms": wait_ms, "collectives": calls,
+           "launches": launches, "peak_mem_gb": peak_gb,
+           "spawned_at": t_spawned, "ready_at": ready,
+           "first_step_done_at": first_done}
+    if rank == 0:
+        out.update(grads=grads, params1=params1,
+                   params_last=_np_tree_of(params))
+    return out
+
+
+def _one_rank_reference(cfg, chain, tokens, steps: int) -> dict:
+    """The one-rank ``Trainer`` on the same seed, chain and batch: the
+    first step's loss, gradients and params, and the params after
+    ``steps`` steps (numpy)."""
+    from deepvision_tpu_torch.engine.training import (
+        Trainer,
+        train_model_chain,
+    )
+
+    trainer = Trainer(cfg, tx=train_model_chain(*chain), seed=SEED,
+                      param_dtype=torch.float32, use_kernel=True,
+                      device=TRAIN_PARALLEL_DEVICE)
+    batch = torch.from_numpy(tokens)
+    loss = trainer.train_step(batch)
+    out = {"loss": loss,
+           "grads": _np_tree_of({n: p.grad for n, p in
+                                 _flat(trainer.params)}),
+           "params1": _np_tree_of(trainer.params)}
+    for _ in range(steps - 1):
+        trainer.train_step(batch)
+    out["params_last"] = _np_tree_of(trainer.params)
+    del trainer
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    return out
+
+
+def _rel_l2(a, b) -> float:
+    denom = float(np.linalg.norm(b))
+    return float(np.linalg.norm(a - b)) / denom if denom else 0.0
+
+
+def _train_parallel_dp_tp(tok) -> dict:
+    """DP2 x TP2 through ``Trainer(mesh, plan)``: 4 spawned ranks on
+    ``cuda:0``, then the one-rank reference in this process."""
+    from deepvision_tpu_torch.engine.config import get_model_config
+    from deepvision_tpu_torch.engine.parallel import launch
+
+    cfg = get_model_config(TRAIN_PARALLEL_MODEL)
+    c = TP_TRAIN
+    warmup = min(200, max(1, c["steps"] // 10))
+    chain = (c["lr"], warmup, max(c["steps"], warmup + 1))
+    tokens = _train_batch(tok, c["batch"], c["seq"] + 1, SEED).numpy()
+    spec = {"n_data": c["n_data"], "n_model": c["n_model"],
+            "steps": c["steps"], "chain": chain, "tokens": tokens,
+            "model": TRAIN_PARALLEL_MODEL, "device": TRAIN_PARALLEL_DEVICE}
+    t0 = time.monotonic()
+    ranks = launch(_dp_tp_rank, c["n_data"] * c["n_model"], (spec,),
+                   timeout_s=RANKS_TIMEOUT_S,
+                   build_kernels=TRAIN_PARALLEL_DEVICE == "cuda")
+    ranks_s = time.monotonic() - t0
+    lead = ranks[0]
+    for r in ranks:
+        if not all(math.isfinite(x) for x in r["losses"]):
+            raise AssertionError(f"train_parallel: rank {r['rank']} "
+                                 f"non-finite losses {r['losses']}")
+        if r["losses"] != lead["losses"]:
+            raise AssertionError(f"train_parallel: losses differ between "
+                                 f"ranks {[x['losses'] for x in ranks]}")
+        for name, n in r["launches"].items():
+            if n != cfg.n_layers * c["steps"]:
+                raise AssertionError(
+                    f"train_parallel: rank {r['rank']} launched {name} {n} "
+                    f"times in {c['steps']} steps, expected {cfg.n_layers} "
+                    "a step")
+    t_ref = time.monotonic()
+    ref = _one_rank_reference(cfg, chain, tokens, c["steps"])
+    ref_s = time.monotonic() - t_ref
+    loss_rel = abs(lead["losses"][0] - ref["loss"]) / abs(ref["loss"])
+    grad_rel = {n: _rel_l2(lead["grads"][n], g)
+                for n, g in ref["grads"].items()}
+    # train_model.py's warmup gives the first update a rate of 0: both
+    # sides' params after it are the seed's, and the gathered ones must be
+    # them bit for bit
+    params1_diff = {n: float(np.abs(lead["params1"][n] - p).max())
+                    for n, p in ref["params1"].items()}
+    params1_equal = (set(lead["params1"]) == set(ref["params1"])
+                     and not any(params1_diff.values()))
+    if not (loss_rel <= TP_LOSS_REL and max(grad_rel.values()) <= TP_GRAD_REL
+            and params1_equal):
+        raise AssertionError(
+            f"train_parallel: DP2 x TP2 against one rank: loss rel "
+            f"{loss_rel} (tol {TP_LOSS_REL}), grad rel {grad_rel} (tol "
+            f"{TP_GRAD_REL}), params after step 1 apart by {params1_diff}")
+    start = ref["params1"]
+    update_rel = {n: _rel_l2(lead["params_last"][n] - start[n],
+                             p - start[n])
+                  for n, p in ref["params_last"].items()}
+    ready = [r["ready_at"] for r in ranks]
+    first = [r["first_step_done_at"] for r in ranks]
+    return {
+        "model": cfg.name, "mesh": {"data": c["n_data"],
+                                    "model": c["n_model"]},
+        "weights": f"random (seed {SEED})", "batch": [c["batch"],
+                                                     c["seq"] + 1],
+        "rows_per_data_rank": c["batch"] // c["n_data"],
+        "param_dtype": "float32", "act_dtype": "bfloat16",
+        "optimizer": f"train_model.py chain, lr {c['lr']}, warmup {warmup}, "
+                     f"{c['steps']} steps",
+        "losses": lead["losses"],
+        "ranks": [{k: r[k] for k in (
+            "rank", "data_index", "model_index", "device", "step_ms",
+            "collective_ms", "collectives", "launches", "peak_mem_gb")}
+            for r in ranks],
+        "ms_per_step_steady": float(np.mean(
+            [np.mean(r["step_ms"][1:]) for r in ranks])),
+        "collective_ms_per_step_steady": float(np.mean(
+            [np.mean(r["collective_ms"][1:]) for r in ranks])),
+        "skew_s": {"ready": max(ready) - min(ready),
+                   "first_step_done": max(first) - min(first),
+                   "spawn_to_ready": [r["ready_at"] - r["spawned_at"]
+                                      for r in ranks]},
+        "vs_one_rank": {"loss": ref["loss"], "loss_rel": loss_rel,
+                        "loss_tol": TP_LOSS_REL,
+                        "grad_rel_max": max(grad_rel.values()),
+                        "grad_tol": TP_GRAD_REL, "grad_rel": grad_rel,
+                        "params_after_step1_bit_equal": params1_equal,
+                        "update_rel_after_last_step": update_rel},
+        "ranks_s": ranks_s, "reference_s": ref_s}
+
+
+def _ring_inputs(c: dict, device):
+    gen = torch.Generator().manual_seed(SEED)
+    q = torch.randn(c["B"], c["H"], c["S"], c["HD"], generator=gen)
+    k = torch.randn(c["B"], c["KV"], c["S"], c["HD"], generator=gen)
+    v = torch.randn(c["B"], c["KV"], c["S"], c["HD"], generator=gen)
+    lens = torch.tensor([c["length"]] * c["B"], dtype=torch.int32)
+    return [x.to(device) for x in (q, k, v, lens)]
+
+
+def _ring_rank(rank: int, store_path: str, spec: dict) -> dict:
+    """One rank of the SP check (a spawned process): its chunk of the
+    seeded float32 inputs through ``ring_attention``, then the same call
+    timed; returns its output (numpy) and the times."""
+    from deepvision_tpu_torch.engine.ring_attention import (
+        make_seq_mesh,
+        ring_attention,
+    )
+
+    n = spec["n"]
+    group = make_seq_mesh(n, rank=rank, store_path=store_path,
+                          device=spec["device"])
+    _cuda_rank_setup(group.device)
+    sync = (torch.cuda.synchronize if group.device.type == "cuda"
+            else lambda: None)
+    q, k, v, lens = _ring_inputs(spec["shape"], group.device)
+    c = q.shape[2] // n
+    part = [x[:, :, rank * c:(rank + 1) * c].contiguous() for x in (q, k, v)]
+    out = ring_attention(*part, lens, group)
+    sync()
+    times = []
+    for _ in range(3):
+        w0 = group.wait_s
+        t = time.monotonic()
+        ring_attention(*part, lens, group)
+        sync()
+        times.append(((time.monotonic() - t) * 1e3,
+                      (group.wait_s - w0) * 1e3))
+    return {"out": out.cpu().numpy(), "ms": [t for t, _ in times],
+            "sendrecv_ms": [w for _, w in times]}
+
+
+def _train_parallel_sp() -> dict:
+    from deepvision_tpu_torch.engine.kernels.flash_attention import (
+        flash_attention_reference,
+    )
+    from deepvision_tpu_torch.engine.parallel import launch
+
+    n = 2
+    t0 = time.monotonic()
+    ranks = launch(_ring_rank, n, ({"n": n, "shape": SP_SHAPE,
+                                    "device": TRAIN_PARALLEL_DEVICE},),
+                   timeout_s=RANKS_TIMEOUT_S)
+    q, k, v, lens = _ring_inputs(SP_SHAPE, TRAIN_PARALLEL_DEVICE)
+    want = flash_attention_reference(q, k, v, lens).cpu().numpy()
+    got = np.concatenate([r["out"] for r in ranks], axis=2)
+    L = SP_SHAPE["length"]
+    err = float(np.abs(got[:, :, :L] - want[:, :, :L]).max())
+    if not (err <= SP_TOL and np.isfinite(got[:, :, :L]).all()):
+        raise AssertionError(f"train_parallel: ring attention max_abs_err "
+                             f"{err} > {SP_TOL}")
+    plain_ms = cuda_ms(lambda: flash_attention_reference(q, k, v, lens), 3)
+    del q, k, v
+    return {"shape": SP_SHAPE, "ranks": n, "dtype": "float32",
+            "max_abs_err": err, "tol": SP_TOL,
+            "ms": [r["ms"] for r in ranks],
+            "sendrecv_ms": [r["sendrecv_ms"] for r in ranks],
+            "plain_ms_one_device": plain_ms,
+            "seconds": time.monotonic() - t0}
+
+
+def _write_corpus(path: str, n_docs: int, seed: int) -> None:
+    """Seeded interview transcripts from the in-repo scenarios, joined by
+    ``<|eot|>`` as ``scripts/build_corpus.py`` writes a corpus."""
+    import random
+
+    rng = random.Random(seed)
+    scenarios = []
+    for name in sorted(glob.glob(os.path.join(
+            ROOT, "resources", "scenarios", "builtin", "*.json"))):
+        with open(name, encoding="utf-8") as fh:
+            scenarios.append(json.load(fh))
+    docs = []
+    for _ in range(n_docs):
+        sc = rng.choice(scenarios)
+        parts = [f"访谈主题：{sc['name']}\n{sc['description']}\n\n"]
+        for turn in range(rng.randint(4, 10)):
+            d = rng.choice(sc["dimensions"])
+            aspects = rng.sample(d["key_aspects"],
+                                 rng.randint(1, len(d["key_aspects"])))
+            parts.append(
+                f"问题{turn + 1}（{d['name']}）：请具体说明{d['description']}。"
+                f"\n回答：关于{'、'.join(aspects)}，目前第{rng.randint(1, 30)}"
+                f"轮访谈确认了现状与期望。\n")
+        docs.append("".join(parts))
+    with open(path, "w", encoding="utf-8") as fh:
+        fh.write("<|eot|>".join(docs))
+
+
+def _pp_loss_rank(rank: int, store_path: str, spec: dict) -> float:
+    """One stage of the PP loss check (a spawned process): the pipeline's
+    float32 loss on the seed's weights and the fixed batch."""
+    from deepvision_tpu_torch.engine.config import get_model_config
+    from deepvision_tpu_torch.engine.pipeline_parallel import (
+        make_pp_loss_fn,
+        make_pp_mesh,
+        place_pp_params,
+    )
+    from deepvision_tpu_torch.engine.weights import init_params
+
+    group = make_pp_mesh(spec["n_stages"], rank=rank, store_path=store_path,
+                         device=spec["device"])
+    _cuda_rank_setup(group.device)
+    cfg = get_model_config(spec["model"])
+    full = init_params(cfg, device="cpu", seed=SEED, dtype=torch.float32)
+    params = {k: (v.to(group.device) if not isinstance(v, dict) else
+                  {n: t.to(group.device) for n, t in v.items()})
+              for k, v in place_pp_params(full, group, cfg).items()}
+    del full
+    loss_fn = make_pp_loss_fn(cfg, group, spec["n_micro"])
+    with torch.no_grad():
+        return loss_fn(params, torch.from_numpy(spec["tokens"]).to(
+            group.device)).item()
+
+
+def _train_parallel_pp(tok) -> dict:
+    """``python -m deepvision_tpu_torch.train_model --pp 2`` on a seeded
+    corpus, then the pipeline's loss against one device's."""
+    from deepvision_tpu_torch.engine import model as model_lib
+    from deepvision_tpu_torch.engine.config import get_model_config
+    from deepvision_tpu_torch.engine.parallel import launch
+    from deepvision_tpu_torch.engine.training import cross_entropy_loss
+    from deepvision_tpu_torch.engine.weights import init_params, load_npz
+
+    cfg = get_model_config(TRAIN_PARALLEL_MODEL)
+    t0 = time.monotonic()
+    with tempfile.TemporaryDirectory() as tmp:
+        corpus = os.path.join(tmp, "corpus.txt")
+        _write_corpus(corpus, 120, SEED)
+        out = os.path.join(tmp, "ckpt", "dv-base-pp.npz")
+        cmd = [sys.executable, "-m", "deepvision_tpu_torch.train_model",
+               *PP_ARGS, "--corpus", corpus, "--tokenizer",
+               os.path.join(ROOT, "resources", "tokenizer",
+                            "dv_bpe_16k.json"),
+               "--out", out, "--log-every", "1", "--save-every", "0",
+               # a tail long enough for the validation batches, which run
+               # through the pipeline too
+               "--val-frac", "0.4"]
+        # its own session, so that a timeout ends its stage process too
+        proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True,
+                                start_new_session=True)
+        try:
+            stdout, stderr = proc.communicate(timeout=RANKS_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, 9)
+            proc.communicate()
+            raise
+        cli_s = time.monotonic() - t0
+        log = stdout.splitlines()
+        stages_line = (f"pipeline parallel: 2 stages x "
+                       f"{cfg.n_layers // 2} layers, 4 microbatches")
+        final = next((line for line in log if line.startswith("saved ")),
+                     "")
+        val = re.search(r"final val_loss=([0-9.]+);", final)
+        if (proc.returncode != 0 or stages_line not in log or val is None
+                or not math.isfinite(float(val.group(1)))):
+            raise AssertionError(
+                f"train_parallel: train_model --pp exited "
+                f"{proc.returncode}:\n{stdout[-3000:]}\n{stderr[-3000:]}")
+        ckpt = load_npz(out, device="cpu")
+        stacks = {n: tuple(t.shape) for n, t in ckpt["blocks"].items()}
+        if any(shape[0] != cfg.n_layers for shape in stacks.values()):
+            raise AssertionError(f"train_parallel: --pp checkpoint stacks "
+                                 f"{stacks}")
+        ckpt_mb = os.path.getsize(out) / 1e6
+    steps = [line for line in log if line.startswith("step ")]
+    # the pipeline's loss on fixed weights and batch against one device's
+    t_loss = time.monotonic()
+    tokens = _train_batch(tok, 8, TP_TRAIN["seq"] + 1, SEED + 1).numpy()
+    pp = launch(_pp_loss_rank, 2, ({"n_stages": 2, "n_micro": 4,
+                                    "tokens": tokens,
+                                    "model": TRAIN_PARALLEL_MODEL,
+                                    "device": TRAIN_PARALLEL_DEVICE},),
+                timeout_s=RANKS_TIMEOUT_S)
+    params = init_params(cfg, device=TRAIN_PARALLEL_DEVICE, seed=SEED,
+                         dtype=torch.float32)
+    batch = torch.from_numpy(tokens).to(TRAIN_PARALLEL_DEVICE)
+    with torch.no_grad():
+        want = cross_entropy_loss(model_lib.forward_train(
+            params, batch[:, :-1], cfg=cfg, act_dtype=torch.float32),
+            batch[:, 1:]).item()
+    del params
+    rel = abs(pp[0] - want) / abs(want)
+    if pp[0] != pp[1] or not rel <= PP_LOSS_REL:
+        raise AssertionError(f"train_parallel: PP loss {pp} against one "
+                             f"device's {want} (rel {rel} > {PP_LOSS_REL})")
+    return {"cli": {"argv": PP_ARGS, "exit": proc.returncode,
+                    "stages_line": stages_line, "step_lines": steps,
+                    "final_line": final,
+                    "corpus_line": next((line for line in log
+                                         if line.startswith("corpus: ")),
+                                        None),
+                    "checkpoint_mb": ckpt_mb, "stacks": stacks,
+                    "seconds": cli_s},
+            "loss_check": {"pp_loss": pp[0], "one_device_loss": want,
+                           "rel": rel, "tol": PP_LOSS_REL,
+                           "act_dtype": "float32",
+                           "seconds": time.monotonic() - t_loss}}
+
+
+def phase_train_parallel() -> dict:
+    """Multi-device training on one card, every rank a spawned process on
+    ``cuda:0`` over gloo: DP2 x TP2 ``Trainer(mesh, plan)`` on dv-base
+    against one rank; ring attention over 2 ranks against plain float32
+    attention; ``train_model --pp 2`` and the pipeline's loss against one
+    device's."""
+    import multiprocessing
+
+    from deepvision_tpu_torch.engine.tokenizer import get_tokenizer
+
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    tok = get_tokenizer(os.path.join(ROOT, "resources", "tokenizer",
+                                     "dv_bpe_16k.json"))
+    out = {"phase": "train_parallel"}
+    out["dp_tp"] = _train_parallel_dp_tp(tok)
+    emit({"phase": "train_parallel", "part": "dp_tp", **out["dp_tp"]})
+    out["sp"] = _train_parallel_sp()
+    emit({"phase": "train_parallel", "part": "sp", **out["sp"]})
+    out["pp"] = _train_parallel_pp(tok)
+    emit({"phase": "train_parallel", "part": "pp", **out["pp"]})
+    if multiprocessing.active_children():
+        raise AssertionError(f"train_parallel: ranks outlived the phase "
+                             f"{multiprocessing.active_children()}")
+    # #2, #4 and #5 launches summed over the DP x TP ranks
+    out["launches"] = {
+        name: sum(r["launches"][name] for r in out["dp_tp"]["ranks"])
+        for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    out["seconds"] = time.monotonic() - t0
+    emit({"phase": "train_parallel", "part": "summary",
+          "launches_all_ranks": out["launches"], "seconds": out["seconds"]})
+    return out
+
+
 KERNELS = {
     "flash_fwd": {
         "source": "deepvision_tpu_torch/engine/kernels/csrc/flash_fwd.cu",
@@ -3947,6 +4467,7 @@ def main() -> int:
     phase_orbax()
     engine_tp = phase_engine_tp()
     train = phase_train()
+    train_parallel = phase_train_parallel()
     emit({"phase": "all", "seconds": time.monotonic() - t0})
     # each kernel's launches come from the phase whose path it is
     launches = {**eng["launches"],
@@ -3986,7 +4507,15 @@ def main() -> int:
              model: {k: case[k] for k in (
                  "case", "shape", "max_abs_err", "ms", "plain_ms",
                  "bound_ms", "bound_by", "library_ms", "device_ms")}
-             for model, case in main_cases["tp_shard"].get(name, {}).items()}}
+             for model, case in main_cases["tp_shard"].get(name, {}).items()},
+         # DP2 x TP2 training (phase train_parallel): launches summed over
+         # the 4 ranks, and the kernel at the ranks' shard shape
+         "train_parallel_launches": train_parallel["launches"].get(name),
+         "train_shard_case": {
+             k: main_cases["train_shard"][name][k] for k in (
+                 "case", "shape", "max_abs_err", "ms", "plain_ms",
+                 "bound_ms", "bound_by", "library_ms")}
+         if name in main_cases["train_shard"] else None}
         for name in KERNELS]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["name"],
                                  "count": dev["count"]}})

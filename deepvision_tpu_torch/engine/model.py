@@ -21,6 +21,13 @@ shapes, an ``all_reduce`` sums the attention out-projection's and the MLP
 down-projection's partial products, and with ``vocab_sharded`` the
 embedding sums the owner rank's rows and the logits are the rank's own
 slice of the vocab.
+
+``forward_train`` runs as one rank of a training step's model group too,
+where the JAX package's GSPMD computes the logical model from sharded
+params: Megatron's *f* (identity forward, ``all_reduce`` backward) sits in
+front of each column-parallel projection and *g* (``all_reduce`` forward,
+identity backward) after each row-parallel one, so the gradients of the
+replicated leaves (norms, embedding) come out whole on every rank.
 """
 
 from __future__ import annotations
@@ -41,6 +48,11 @@ from deepvision_tpu_torch.engine.kernels.paged_chunk import (
 from deepvision_tpu_torch.engine.kv_cache import (
     write_chunk_tokens,
     write_prefill_pages,
+)
+from deepvision_tpu_torch.engine.parallel import (
+    copy_to_group,
+    gather_from_group,
+    reduce_from_group,
 )
 
 
@@ -126,7 +138,7 @@ def _qkv_proj(h, blk, cfg: ModelConfig, dtype=torch.bfloat16):
 
 
 def _psum(x: torch.Tensor, group) -> torch.Tensor:
-    return group.all_reduce(x) if group is not None else x
+    return reduce_from_group(x, group)
 
 
 def _mlp(x, blk, compute_dtype=torch.bfloat16, group=None):
@@ -155,7 +167,7 @@ def _embed(params, tokens, dtype=torch.bfloat16, group=None,
     owns = (local >= 0) & (local < v_local)
     rows = embed[local.clamp(0, v_local - 1)].float()
     rows = torch.where(owns[..., None], rows, torch.zeros_like(rows))
-    return group.all_reduce(rows).to(dtype)
+    return _psum(rows, group).to(dtype)
 
 
 def _logits(x, params, cfg: ModelConfig):
@@ -373,7 +385,9 @@ def calibrate_kv_scales(params, tokens, *, cfg: ModelConfig,
 # ---------------------------------------------------------------------------
 
 def forward_train(params, tokens, *, cfg: ModelConfig,
-                  act_dtype=torch.bfloat16, use_kernel: bool = False):
+                  act_dtype=torch.bfloat16, use_kernel: bool = False,
+                  group=None, vocab_sharded: bool = False,
+                  local_logits: bool = False):
     """Full-sequence forward returning ``[B, S, V]`` float32 logits;
     differentiable in the params (the training step's forward).
 
@@ -382,26 +396,85 @@ def forward_train(params, tokens, *, cfg: ModelConfig,
     ``False`` through the plain :func:`flash_attention_reference`, which
     autograd differentiates densely.  ``act_dtype=torch.float32`` gives the
     JAX package's f32 parity mode.  Callers that only score wrap it in
-    ``torch.no_grad()``."""
+    ``torch.no_grad()``.
+
+    ``group``: this rank's model group, with ``params`` its shard
+    (``parallel.shard_params``).  Where the kv heads do not divide by the
+    group (the plan replicates wk/wv), each local query head reads its own
+    kv head of the logical model, ``h // (H // KV)`` for global head ``h``,
+    and the replicated wk/wv gradients are summed over the group.  With
+    ``vocab_sharded`` the logits are gathered to the full vocab, as the JAX
+    forward does, unless ``local_logits`` asks for this rank's slice (for
+    :func:`~deepvision_tpu_torch.engine.training.cross_entropy_loss` over
+    the shards).
+    """
     attn_fn = flash_attention if use_kernel else flash_attention_reference
+    if group is not None and group.size == 1:
+        group = None
     B, S = tokens.shape
-    HD = cfg.head_dim
-    x = _scaled_embed(params, tokens, cfg, act_dtype)
-    rope = rope_tables(torch.arange(S, device=tokens.device), HD,
+    x = _scaled_embed(params, tokens, cfg, act_dtype, group, vocab_sharded)
+    rope = rope_tables(torch.arange(S, device=tokens.device), cfg.head_dim,
                        cfg.rope_theta)
     seq_lens = torch.full((B,), S, dtype=torch.int32, device=tokens.device)
-    for i in range(cfg.n_layers):
-        blk = _layer(params, i)
-        h = rms_norm(x, blk["ln1"], cfg.rms_eps)
-        q, k, v = _qkv_proj(h, blk, cfg, act_dtype)
-        q = apply_rope(q.reshape(B, S, -1, HD), rope)
-        k = apply_rope(k.reshape(B, S, -1, HD), rope)
-        v = v.reshape(B, S, -1, HD)
-        attn = attn_fn(
-            q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
-            v.transpose(1, 2).contiguous(), seq_lens)
-        attn = attn.transpose(1, 2).reshape(B, S, -1)
-        x = x + qdot(attn, blk["wo"], torch.float32).to(x.dtype)
-        x = x + _mlp(rms_norm(x, blk["ln2"], cfg.rms_eps), blk, act_dtype)
+    blocks, kv_heads = _train_blocks(params["blocks"], cfg, group)
+    for i in range(blocks["ln1"].shape[0]):
+        x = train_layer(_layer({"blocks": blocks}, i), x, cfg=cfg,
+                        act_dtype=act_dtype, attn_fn=attn_fn, rope=rope,
+                        seq_lens=seq_lens, group=group, kv_heads=kv_heads)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
-    return _logits(x, params, cfg)
+    if group is not None and vocab_sharded:
+        x = copy_to_group(x, group)
+    logits = _logits(x, params, cfg)
+    if group is not None and vocab_sharded and not local_logits:
+        logits = gather_from_group(logits, group)
+    return logits
+
+
+def train_layer(blk, x, *, cfg: ModelConfig, act_dtype, attn_fn, rope,
+                seq_lens, group=None, kv_heads=None):
+    """One layer of :func:`forward_train` (and of a pipeline stage): x ->
+    x + attention -> x + MLP, with the *f* / *g* collectives of ``group``.
+    ``kv_heads``: the kv head of each local query head, where K/V are
+    replicated (None: the kernels' grouping)."""
+    B, S, _ = x.shape
+    HD = cfg.head_dim
+    h = copy_to_group(rms_norm(x, blk["ln1"], cfg.rms_eps), group)
+    q, k, v = _qkv_proj(h, blk, cfg, act_dtype)
+    q = apply_rope(q.reshape(B, S, -1, HD), rope).transpose(1, 2)
+    k = apply_rope(k.reshape(B, S, -1, HD), rope).transpose(1, 2)
+    v = v.reshape(B, S, -1, HD).transpose(1, 2)
+    if kv_heads is not None:
+        k, v = k.index_select(1, kv_heads), v.index_select(1, kv_heads)
+    attn = attn_fn(q.contiguous(), k.contiguous(), v.contiguous(), seq_lens)
+    attn = attn.transpose(1, 2).reshape(B, S, -1)
+    x = x + _psum(qdot(attn, blk["wo"], torch.float32), group).to(x.dtype)
+    h2 = copy_to_group(rms_norm(x, blk["ln2"], cfg.rms_eps), group)
+    return x + _mlp(h2, blk, act_dtype, group)
+
+
+def _train_blocks(blocks, cfg: ModelConfig, group):
+    """``(blocks, kv_heads)`` for a training forward on ``group``.
+
+    Where the plan replicates K/V (the kv heads do not divide by the
+    group), every rank holds all ``KV`` heads while its query heads are
+    ``r * H_local ... (r + 1) * H_local - 1``.  ``kv_heads`` then picks the
+    kv heads those query heads read in the logical model (the distinct ones
+    when each serves an equal run of local heads, so the kernels' grouping
+    applies; one a query head otherwise), and wk/wv pass through *f*: each
+    rank's gradient holds only its query heads' part.  None where the kv
+    heads are sharded (or on one rank): the kernels' pairing is right."""
+    HD = cfg.head_dim
+    if group is None or blocks["wk"].shape[-1] // HD != cfg.n_kv_heads:
+        return blocks, None
+    h_local = blocks["wq"].shape[-1] // HD
+    heads = group.rank * h_local + torch.arange(h_local)
+    kv = heads // (cfg.n_heads // cfg.n_kv_heads)
+    distinct = torch.unique_consecutive(kv)
+    run = h_local // len(distinct)
+    if torch.equal(distinct.repeat_interleave(run), kv):
+        kv = distinct
+    blocks = dict(blocks, wk=copy_to_group(blocks["wk"], group),
+                  wv=copy_to_group(blocks["wv"], group))
+    if torch.equal(kv, torch.arange(cfg.n_kv_heads)):
+        return blocks, None
+    return blocks, kv.to(blocks["wk"].device)

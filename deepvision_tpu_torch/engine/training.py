@@ -1,4 +1,4 @@
-"""Training / fine-tuning step on one device.
+"""Training / fine-tuning step, on one device or one rank of a DP x TP mesh.
 
 Counterpart of the JAX package's ``engine/training.py``: the loss, a train
 step and a ``Trainer`` over the same parameter tree (a dict of stacked
@@ -12,8 +12,13 @@ attention kernels (forward and both backward kernels); on CPU tensors they
 run their plain versions.
 
 The trainer runs on a CUDA device unless the caller passes
-``device="cpu"``; the multi-device (mesh / shard plan) path comes with the
-next multi-device slice (tensor-parallel serving came first).
+``device="cpu"``.  ``Trainer(cfg, mesh=make_mesh(...), plan=ShardPlan
+.for_model(...))`` is one rank of the JAX package's DP x TP step: every
+rank of the mesh builds its own ``Trainer`` (the ranks are processes,
+``parallel.RankProcesses``).  A rank holds its model index's shard of the
+params, takes its data index's rows of each global batch, averages the
+gradients over its data group, clips by the norm of the logical leaves and
+returns the global batch's mean loss.
 """
 
 from __future__ import annotations
@@ -28,15 +33,36 @@ import torch
 from deepvision_tpu_torch.engine import model as model_lib
 from deepvision_tpu_torch.engine.config import ModelConfig
 from deepvision_tpu_torch.engine.engine import resolve_device
+from deepvision_tpu_torch.engine.parallel import (
+    reduce_from_group,
+    shard_params,
+)
 from deepvision_tpu_torch.engine.weights import init_params
 
 
-def cross_entropy_loss(logits: torch.Tensor,
-                       targets: torch.Tensor) -> torch.Tensor:
-    """Mean next-token cross-entropy from float32 logits ``[..., V]``."""
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    ll = logp.gather(-1, targets.long()[..., None])[..., 0]
-    return -ll.mean()
+def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
+                       group=None) -> torch.Tensor:
+    """Mean next-token cross-entropy from float32 logits ``[..., V]``.
+
+    With ``group``, ``logits`` are this rank's slice of a vocab sharded
+    over the group (rank ``r`` holds ids ``r * V_local ...``): the row
+    maximum is reduced over the ranks, then the sum of exponentials and the
+    target's logit (from the rank that owns it) in one sum, whose backward
+    leaves each rank the gradient of its own slice."""
+    if group is None or group.size == 1:
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        ll = logp.gather(-1, targets.long()[..., None])[..., 0]
+        return -ll.mean()
+    z = logits.float()
+    v_local = z.shape[-1]
+    m = group.all_reduce(z.detach().amax(dim=-1, keepdim=True), op="max")
+    local = targets.long() - group.rank * v_local
+    owns = (local >= 0) & (local < v_local)
+    picked = z.gather(-1, local.clamp(0, v_local - 1)[..., None])[..., 0]
+    parts = torch.stack([torch.exp(z - m).sum(dim=-1),
+                         torch.where(owns, picked, torch.zeros_like(picked))])
+    sum_exp, target = reduce_from_group(parts, group).unbind(0)
+    return (torch.log(sum_exp) + m[..., 0] - target).mean()
 
 
 # ---------------------------------------------------------------------------
@@ -98,13 +124,17 @@ class AdamW:
                     if sched else None)
         return OptState(leaves, opt, lr_sched)
 
-    def update(self, state: "OptState") -> None:
+    def update(self, state: "OptState",
+               grad_norm: Optional[Callable] = None) -> None:
         """One step from the gradients in the leaves' ``.grad`` (clipped by
         their global norm first when ``max_grad_norm`` is set), without a
-        host sync."""
+        host sync.  ``grad_norm(leaves)`` gives that norm where the leaves
+        are shards (:func:`global_grad_norm`)."""
         if self.max_grad_norm is not None:
-            clip_by_global_norm_([p.grad for p in state.leaves
-                                  if p.grad is not None], self.max_grad_norm)
+            clip_by_global_norm_(
+                [p.grad for p in state.leaves if p.grad is not None],
+                self.max_grad_norm,
+                grad_norm(state.leaves) if grad_norm is not None else None)
         state.optimizer.step()
         if state.lr_schedule is not None:
             state.lr_schedule.step()
@@ -128,16 +158,53 @@ def train_model_chain(learning_rate: float, warmup_steps: int,
     return AdamW(sched, weight_decay=0.01, max_grad_norm=1.0)
 
 
-def clip_by_global_norm_(grads, max_norm: float) -> None:
+def clip_by_global_norm_(grads, max_norm: float,
+                         norm: Optional[torch.Tensor] = None) -> None:
     """``optax.clip_by_global_norm`` in place: scale every gradient by
     ``max_norm / norm`` when the global norm reaches ``max_norm`` (on the
-    device; nothing is read back)."""
-    norm = torch.linalg.vector_norm(
-        torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
+    device; nothing is read back).  ``norm``: the global norm, where it is
+    not the norm of ``grads`` alone (shards)."""
+    if norm is None:
+        norm = torch.linalg.vector_norm(
+            torch.stack([torch.linalg.vector_norm(g.float())
+                         for g in grads]))
     coef = torch.where(norm < max_norm, torch.ones_like(norm),
                        max_norm / norm)
     for g in grads:
         g.mul_(coef.to(g.dtype))
+
+
+def global_grad_norm(leaves, dims, group) -> torch.Tensor:
+    """The global norm of the logical params' gradients where ``leaves``
+    are one rank's shards (``dims``: each leaf's cut dim or None, in the
+    same order): the squares of the cut leaves summed over ``group``, each
+    replicated leaf (whole and equal on every rank) counted once."""
+    cut = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+    whole = torch.zeros_like(cut)
+    for p, d in zip(leaves, dims):
+        if p.grad is None:
+            continue
+        sq = p.grad.float().square().sum()
+        if d is None:
+            whole = whole + sq
+        else:
+            cut = cut + sq
+    if group is not None and group.size > 1:
+        cut = group.all_reduce(cut)
+    return torch.sqrt(cut + whole)
+
+
+def sum_grads_(leaves, group, scale: float = 1.0) -> None:
+    """Every leaf's gradient summed over ``group`` and scaled, in place:
+    one ``all_reduce`` over the gradients laid end to end."""
+    grads = [p.grad for p in leaves if p.grad is not None]
+    flat = group.all_reduce(torch.cat([g.reshape(-1) for g in grads]))
+    if scale != 1.0:
+        flat.mul_(scale)
+    offset = 0
+    for g in grads:
+        g.copy_(flat[offset:offset + g.numel()].view_as(g))
+        offset += g.numel()
 
 
 # ---------------------------------------------------------------------------
@@ -146,7 +213,7 @@ def clip_by_global_norm_(grads, max_norm: float) -> None:
 
 def make_train_step(cfg: ModelConfig, optimizer: AdamW, *,
                     use_kernel: bool = False,
-                    act_dtype=torch.bfloat16):
+                    act_dtype=torch.bfloat16, mesh=None, plan=None):
     """Returns ``step(params, opt_state, tokens) -> loss``: one forward and
     backward of next-token cross-entropy on ``tokens [B, S + 1]`` and one
     optimizer update of ``params`` in place (``opt_state`` from
@@ -155,18 +222,38 @@ def make_train_step(cfg: ModelConfig, optimizer: AdamW, *,
     ``use_kernel=True`` runs attention through the flash kernels, whose
     residuals are O(S) per layer instead of the plain path's O(S^2) scores:
     that is what lets dv-base train at its 2,048-token window.
+
+    With ``mesh`` and ``plan`` the step is one rank's (``params`` its
+    shard, ``tokens`` its data index's rows): the forward's collectives run
+    over the model group, the gradients are averaged over the data group,
+    clipping takes the logical leaves' norm, and the loss returned is the
+    mean over the data group (the global batch's loss).
     """
+    group = mesh.model if mesh is not None else None
+    vocab_sharded = bool(plan is not None and plan.vocab_sharded)
+    grad_norm = None
+    if mesh is not None:
+        dims = list(_leaves(plan.param_dims(cfg)))
+
+        def grad_norm(leaves):
+            return global_grad_norm(leaves, dims, group)
 
     def step(params, opt_state: OptState, tokens):
         opt_state.optimizer.zero_grad(set_to_none=True)
         logits = model_lib.forward_train(
             params, tokens[:, :-1], cfg=cfg, act_dtype=act_dtype,
-            use_kernel=use_kernel)
-        loss = cross_entropy_loss(logits, tokens[:, 1:])
+            use_kernel=use_kernel, group=group, vocab_sharded=vocab_sharded,
+            local_logits=True)
+        loss = cross_entropy_loss(logits, tokens[:, 1:],
+                                  group if vocab_sharded else None)
         del logits
         loss.backward()
-        optimizer.update(opt_state)
-        return loss.detach()
+        loss = loss.detach()
+        if mesh is not None and mesh.n_data > 1:
+            sum_grads_(opt_state.leaves, mesh.data, 1.0 / mesh.n_data)
+            loss = mesh.data.all_reduce(loss.clone()) / mesh.n_data
+        optimizer.update(opt_state, grad_norm)
+        return loss
 
     return step
 
@@ -194,7 +281,9 @@ def as_trainable(tree: dict, device, dtype=None) -> dict:
 
 
 class Trainer:
-    """Minimal fine-tuning harness on one device."""
+    """Minimal fine-tuning harness on one device, or one rank of a DP x TP
+    mesh (``mesh`` from ``parallel.make_mesh`` and ``plan`` a
+    ``ShardPlan`` for ``mesh.n_model``; the device is the mesh's)."""
 
     def __init__(
         self,
@@ -211,27 +300,54 @@ class Trainer:
         device="cuda",
         act_dtype=torch.bfloat16,
     ):
-        if mesh is not None or plan is not None:
-            raise NotImplementedError(
-                "Trainer(mesh=..., plan=...): DP x TP training comes with "
-                "the next multi-device slice (after TP serving), with ring "
-                "attention and pipeline parallelism")
+        if (mesh is None) != (plan is None):
+            raise ValueError("Trainer: pass mesh and plan together")
+        if mesh is not None and mesh.n_model != plan.n_model:
+            raise ValueError(f"Trainer: a plan for TP degree {plan.n_model} "
+                             f"on a mesh of {mesh.n_model} model ranks")
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.plan = plan
+        self.device = (mesh.device if mesh is not None
+                       else resolve_device(device))
         self.tx = tx if tx is not None else AdamW(learning_rate)
         if init is None:
-            init = init_params(cfg, device=self.device, seed=seed,
-                               dtype=param_dtype or torch.bfloat16)
+            # the full tree from the seed (drawn on the host, the same on
+            # every rank), then this rank's shard
+            init = init_params(
+                cfg, device="cpu" if mesh is not None else self.device,
+                seed=seed, dtype=param_dtype or torch.bfloat16)
+        if mesh is not None:
+            init = shard_params(init, plan, cfg, mesh.model_index)
         self.params = as_trainable(init, self.device, param_dtype)
         self.opt_state = self.tx.init(self.params)
         self._step = make_train_step(cfg, self.tx, use_kernel=use_kernel,
-                                     act_dtype=act_dtype)
+                                     act_dtype=act_dtype, mesh=mesh,
+                                     plan=plan)
         self.step_count = 0
 
     def place_batch(self, tokens) -> torch.Tensor:
+        """``tokens`` on the device; on a mesh, this rank's data index's
+        contiguous rows of the global batch."""
         if not isinstance(tokens, torch.Tensor):
             tokens = torch.from_numpy(np.asarray(tokens))
+        if self.mesh is not None and self.mesh.n_data > 1:
+            rows = tokens.shape[0]
+            if rows % self.mesh.n_data:
+                raise ValueError(f"batch of {rows} rows over "
+                                 f"{self.mesh.n_data} data ranks")
+            per = rows // self.mesh.n_data
+            tokens = tokens[self.mesh.data_index * per:
+                            (self.mesh.data_index + 1) * per]
         return tokens.to(self.device, torch.int32)
+
+    def full_params(self) -> dict:
+        """On a mesh: a copy of the full params tree, gathered over the
+        model group (every rank of the group must call it)."""
+        from deepvision_tpu_torch.engine.parallel import gather_params
+
+        return gather_params(self.params, self.plan.param_dims(self.cfg),
+                             self.mesh.model)
 
     def train_step(self, tokens) -> float:
         return float(self.train_step_async(tokens))

@@ -7,8 +7,12 @@ backward kernels unless ``--dense-attn``) -> an ``.npz`` checkpoint that
 the port's engine and the JAX package both load.  Periodic saves
 (``--save-every``), a held-out validation loss (``--val-frac``),
 ``--resume`` from a saved ``.npz`` and ``--early-stop`` behave as there.
-It runs on a CUDA device unless ``--device cpu`` is passed; pipeline
-parallelism (``--pp > 1``) comes with the multi-device slice.
+It runs on a CUDA device unless ``--device cpu`` is passed.  ``--pp N
+--pp-micro M`` trains GPipe-style over N stages (``engine/
+pipeline_parallel.py``), each a process: this one is stage 0, spawns the
+others and sends every stage the same batches; float32 params, the dense
+attention, and the checkpoint re-gathers the whole ``[L, ...]`` stacks.
+On one card every stage runs on ``cuda:0``.
 
 Usage:
   python -m deepvision_tpu_torch.train_model --model dv-base \
@@ -76,9 +80,10 @@ def parse_args(argv=None):
                     help="stop after N consecutive val evals without "
                          "improvement (0 = run all steps)")
     ap.add_argument("--pp", type=int, default=1,
-                    help="pipeline-parallel stages (not ported: > 1 raises)")
+                    help="pipeline-parallel stages (GPipe, one process a "
+                         "stage; requires n_layers %% pp == 0)")
     ap.add_argument("--pp-micro", type=int, default=4,
-                    help="microbatches per PP step (with --pp)")
+                    help="microbatches per PP step (batch %% micro == 0)")
     ap.add_argument("--dense-attn", action="store_true",
                     help="plain attention through autograd instead of the "
                          "flash kernels")
@@ -87,26 +92,50 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
+# How long the other stages get to end after stage 0's stop
+PP_STOP_S = 60.0
+
+
+def _start_pipeline(args, cfg, tx_args, init):
+    """Stage 0's trainer, after spawning stages ``1 .. pp - 1``: returns
+    ``(trainer, ranks)``; every stage starts from the same float32 params
+    (``init`` or the seed's)."""
+    from deepvision_tpu_torch.engine.parallel import RankProcesses
+    from deepvision_tpu_torch.engine.pipeline_parallel import (
+        PPTrainer,
+        make_pp_mesh,
+        pp_stage_main,
+    )
+    from deepvision_tpu_torch.engine.training import train_model_chain
+
+    spec = {"cfg": cfg, "resume": args.resume, "seed": args.seed,
+            "device": args.device, "n_stages": args.pp,
+            "n_micro": args.pp_micro, "chain": tx_args,
+            "threads": torch.get_num_threads()}
+    ranks = RankProcesses(pp_stage_main, range(1, args.pp), (spec,))
+    try:
+        group = make_pp_mesh(args.pp, rank=0, store_path=ranks.store_path,
+                             device=args.device)
+        trainer = PPTrainer(cfg, group, args.pp_micro,
+                            train_model_chain(*tx_args), init)
+    except BaseException:
+        ranks.stop()
+        raise
+    return trainer, ranks
+
+
 def main(argv=None) -> None:
     args = parse_args(argv)
-    if args.pp > 1:
-        raise NotImplementedError(
-            "--pp > 1: pipeline-parallel training comes with the next "
-            "multi-device slice (after TP serving), with DP x TP training "
-            "and ring attention")
 
-    from deepvision_tpu_torch.engine import model as model_lib
     from deepvision_tpu_torch.engine.config import get_model_config
     from deepvision_tpu_torch.engine.training import (
         Trainer,
-        cross_entropy_loss,
         train_model_chain,
     )
     from deepvision_tpu_torch.engine.weights import (
-        astype,
         count_params,
+        init_params,
         load_npz,
-        save_npz,
     )
 
     t0 = time.time()
@@ -126,21 +155,68 @@ def main(argv=None) -> None:
     train_tokens, val_tokens = tokens[:-n_val], tokens[-n_val:]
 
     warmup = min(args.warmup, max(1, args.steps // 10))
-    tx = train_model_chain(args.lr, warmup, max(args.steps, warmup + 1))
+    tx_args = (args.lr, warmup, max(args.steps, warmup + 1))
     use_kernel = not args.dense_attn
     init = None
     if args.resume:
         init = load_npz(args.resume, device="cpu")
         print(f"resumed params from {args.resume}", flush=True)
-    trainer = Trainer(cfg, tx=tx, seed=args.seed,
-                      param_dtype=torch.float32, use_kernel=use_kernel,
-                      init=init, device=args.device)
-    print(f"{args.model}: {count_params(trainer.params)/1e6:.1f}M params, "
+    ranks = None
+    if args.pp > 1:
+        # GPipe: the layer stack cut over the stages, dense attention
+        from deepvision_tpu_torch.engine.pipeline_parallel import (
+            pp_stage_layers,
+        )
+
+        if args.batch % args.pp_micro:
+            raise ValueError(f"--batch {args.batch} not divisible by "
+                             f"--pp-micro {args.pp_micro} microbatches")
+        pp_stage_layers(cfg, args.pp)
+        if init is None:
+            init = init_params(cfg, device="cpu", seed=args.seed,
+                               dtype=torch.float32)
+        n_params = count_params(init)
+        trainer, ranks = _start_pipeline(args, cfg, tx_args, init)
+        del init
+        use_kernel = False
+        print(f"pipeline parallel: {args.pp} stages x "
+              f"{cfg.n_layers // args.pp} layers, "
+              f"{args.pp_micro} microbatches", flush=True)
+    else:
+        trainer = Trainer(cfg, tx=train_model_chain(*tx_args),
+                          seed=args.seed, param_dtype=torch.float32,
+                          use_kernel=use_kernel, init=init,
+                          device=args.device)
+        n_params = count_params(trainer.params)
+    try:
+        _train(args, cfg, trainer, n_params, use_kernel, train_tokens,
+               val_tokens)
+        if ranks is not None:
+            trainer.stop()
+            ranks.results(PP_STOP_S)
+    finally:
+        if ranks is not None:
+            ranks.stop()
+    _sample(args)
+
+
+def _train(args, cfg, trainer, n_params, use_kernel, train_tokens,
+           val_tokens) -> None:
+    """The training loop, validation and checkpoints; under ``--pp``
+    stage 0's, which ends the other stages when it is done."""
+    from deepvision_tpu_torch.engine import model as model_lib
+    from deepvision_tpu_torch.engine.training import cross_entropy_loss
+    from deepvision_tpu_torch.engine.weights import astype, save_npz
+
+    pipeline = args.pp > 1
+    print(f"{args.model}: {n_params/1e6:.1f}M params, "
           f"device={trainer.device}, "
           f"attn={'flash' if use_kernel else 'dense'}", flush=True)
 
     @torch.no_grad()
     def eval_step(batch):
+        if pipeline:
+            return trainer.eval_loss(batch)
         batch = trainer.place_batch(batch)
         logits = model_lib.forward_train(trainer.params, batch[:, :-1],
                                          cfg=cfg, use_kernel=use_kernel)
@@ -160,8 +236,9 @@ def main(argv=None) -> None:
         return float(np.mean(losses))
 
     def save(path):
+        params = trainer.full_params() if pipeline else trainer.params
         tmp = path + ".tmp"
-        save_npz(tmp, astype(trainer.params, torch.bfloat16))
+        save_npz(tmp, astype(params, torch.bfloat16))
         os.replace(tmp, path)
 
     # fixed-shape batches; contiguous chunks sampled at random offsets
@@ -207,6 +284,8 @@ def main(argv=None) -> None:
           f"final val_loss={val_loss():.4f}; "
           f"best val_loss={best_val:.4f} -> {best_path}", flush=True)
 
+
+def _sample(args) -> None:
     # quick greedy sample through the port's engine as a sanity check —
     # never let it tank a finished training run (the checkpoint is already
     # on disk at this point)

@@ -251,10 +251,14 @@ def test_train_step_async_returns_the_loss_on_the_device():
 
 
 def test_trainer_device_rules():
+    """Without a card a trainer that was not asked for the CPU raises; a
+    mesh without its shard plan (or a plan without its mesh) is refused.
+    ``Trainer(mesh, plan)`` itself is held against the JAX one in
+    ``tests/test_torch_parallel_train.py``."""
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             ttrain.Trainer(TINY_TEST)
-    with pytest.raises(NotImplementedError, match="multi-device"):
+    with pytest.raises(ValueError, match="mesh and plan together"):
         ttrain.Trainer(TINY_TEST, mesh=object(), device="cpu")
 
 
@@ -452,6 +456,16 @@ def test_cli_trains_saves_resumes_and_serves(tmp_path, capsys):
         eng.shutdown()
 
 
-def test_cli_pipeline_parallel_is_not_ported():
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        train_model.main(["--pp", "2", "--device", "cpu"])
+def test_cli_pipeline_parallel_is_not_ported(tmp_path):
+    """``--pp`` is ported (the name is the one this test had while it
+    raised): the CLI refuses a batch that does not split into the
+    microbatches, with ``ValueError`` before any stage is spawned.
+    ``tests/test_torch_pipeline_parallel.py`` trains with ``--pp 2``."""
+    corpus = tmp_path / "corpus.txt"
+    _corpus(corpus)
+    with pytest.raises(ValueError, match="microbatches"):
+        train_model.main(["--pp", "2", "--pp-micro", "3", "--batch", "4",
+                          "--model", "dv-tiny-test", "--tokenizer", "byte",
+                          "--corpus", str(corpus), "--seq", "32",
+                          "--out", str(tmp_path / "x.npz"),
+                          "--device", "cpu"])
