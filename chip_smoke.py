@@ -166,7 +166,12 @@ Phases, each printing one JSON line with its own seconds:
    a step on every rank (step ms, host ms in collectives, the ranks' skew
    and peak memory are reported); ``ring_attention`` over 2 ranks at
    dv-base's attention width (B 1, H 6, KV 2, HD 128, S 8,192, the row
-   padded to 7,000) within 2e-5 of plain float32 attention; ``python -m
+   padded to 7,000) within 2e-5 of plain float32 attention, and its
+   backward (the ring run again, dK/dV travelling with their K/V chunk)
+   from a seeded cotangent: each rank's dq, dk and dv, joined along S,
+   within 2e-5 x max(max|g|, 1) of autograd through plain float32
+   attention on every row (forward and backward ms and their send/recv
+   ms per rank, and one device's plain times, are reported); ``python -m
    deepvision_tpu_torch.train_model --pp 2 --pp-micro 4`` on dv-base
    (batch 8 x 2,048, 2 steps, a seeded corpus) must exit 0 with its
    stages line and a checkpoint of 12-layer stacks, and the pipeline's
@@ -1158,7 +1163,7 @@ def phase_engine() -> dict:
         paged_attention_update,
     )
     from deepvision_tpu_torch.engine.kv_cache import CacheConfig, init_cache
-    from deepvision_tpu_torch.engine.weights import count_params
+    from deepvision_tpu_torch.engine.weights import count_params, param_bytes
 
     t0 = time.monotonic()
     tok_path = os.path.join(ROOT, "resources", "tokenizer", "dv_bpe_16k.json")
@@ -1257,8 +1262,8 @@ def phase_engine() -> dict:
             "decode_ms_per_step": stats["decode_time_s"] * 1e3
             / max(1, stats["decode_steps"]),
             "decode_profile": decode_profile,
-            "param_bytes": _param_bytes(params),
-            "block_bytes": _param_bytes(params["blocks"]),
+            "param_bytes": param_bytes(params),
+            "block_bytes": param_bytes(params["blocks"]),
         }
     finally:
         eng.shutdown()
@@ -1268,11 +1273,6 @@ def phase_engine() -> dict:
     out["texts"] = [text for text, _ in results]
     out["replay_ids"] = replays[0]
     return out
-
-
-def _param_bytes(tree) -> int:
-    return sum(_param_bytes(v) if isinstance(v, dict)
-               else v.numel() * v.element_size() for v in tree.values())
 
 
 def _first_diff(a, b):
@@ -2083,6 +2083,7 @@ def phase_engine_w8(base) -> dict:
         paged_attention_update,
     )
     from deepvision_tpu_torch.engine.quant import is_quantized
+    from deepvision_tpu_torch.engine.weights import param_bytes
 
     t0 = time.monotonic()
     q8 = _q8_check()
@@ -2139,8 +2140,8 @@ def phase_engine_w8(base) -> dict:
             completion = sum(m["completion_tokens"] for _, m in results)
             settings[name] = {
                 "setting": setting, "boot_s": boot_s,
-                "param_bytes": _param_bytes(params),
-                "block_bytes": _param_bytes(params["blocks"]),
+                "param_bytes": param_bytes(params),
+                "block_bytes": param_bytes(params["blocks"]),
                 "json_parsed": len(results), "serve_s": serve_s,
                 "completion_tokens": completion,
                 "decode_tokens_per_s": completion / serve_s,
@@ -2204,6 +2205,7 @@ def phase_gateway_w8(bf16) -> dict:
     are reported."""
     from deepvision_tpu_torch.engine.fuse import is_fused
     from deepvision_tpu_torch.engine.quant import is_quantized
+    from deepvision_tpu_torch.engine.weights import param_bytes
 
     t0 = time.monotonic()
     gw, boot, _, _ = _gateway_boot({"ENGINE_QUANTIZE": "int8",
@@ -2237,7 +2239,7 @@ def phase_gateway_w8(bf16) -> dict:
             "phase": "gateway_w8", "boot": boot,
             "meta": {"question": meta_q, "report_draft": meta_r},
             "json_parsed": 2,
-            "param_bytes": {m: _param_bytes(e.runner.params)
+            "param_bytes": {m: param_bytes(e.runner.params)
                             for m, e in gw.engines.items()},
             "readback_wait_s": {m: e.scheduler.readback_wait_s
                                 for m, e in gw.engines.items()},
@@ -2988,6 +2990,7 @@ def phase_hf_import() -> dict:
     from deepvision_tpu_torch.engine.quant import is_quantized_weight
     from deepvision_tpu_torch.engine.weights import (
         from_numpy_params,
+        param_bytes,
         round_to_bf16,
         save_npz,
     )
@@ -3065,7 +3068,7 @@ def phase_hf_import() -> dict:
                                zip(plain_next, res.token_ids)]))
         out = {
             "phase": "hf_import", "config": cfg.__dict__,
-            "param_bytes": _param_bytes(qp), "tokens": res.token_ids,
+            "param_bytes": param_bytes(qp), "tokens": res.token_ids,
             "launches": launches, "logit_err": err, "logit_tol": tol,
             "greedy_agreement_with_float32": agree,
         }
@@ -3214,6 +3217,7 @@ def phase_orbax() -> dict:
         init_params,
         load_checkpoint,
         load_npz,
+        param_bytes,
         save_checkpoint,
     )
     from deepvision_tpu_torch.engine.config import get_model_config
@@ -3270,7 +3274,7 @@ def phase_orbax() -> dict:
     cfg = get_model_config("dv-base")
     npz = os.path.join(ROOT, "resources", "checkpoints", "dv-base.npz")
     params = load_npz(npz, device="cuda")
-    nbytes = _param_bytes(params)
+    nbytes = param_bytes(params)
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "dv-base")
         t = time.monotonic()
@@ -3929,6 +3933,10 @@ TP_LOSS_REL, TP_GRAD_REL = 1e-3, 5e-2
 # SP: dv-base's attention width at a sequence two ranks cut in half
 SP_SHAPE = dict(B=1, H=6, KV=2, S=8192, HD=128, length=7000)
 SP_TOL = 2e-5
+# the ring's backward against autograd of plain float32 attention, each of
+# dq, dk, dv: |g - g_plain| <= SP_GRAD_TOL * max(max|g_plain|, 1) (on the
+# CPU the JAX ring's gradients were within 2.1e-6 of dense at S 4,096)
+SP_GRAD_TOL = 2e-5
 # PP: train_model.py --pp on dv-base
 PP_ARGS = ["--model", "dv-base", "--pp", "2", "--pp-micro", "4",
            "--batch", "8", "--seq", "2048", "--steps", "2"]
@@ -4156,18 +4164,22 @@ def _train_parallel_dp_tp(tok) -> dict:
 
 
 def _ring_inputs(c: dict, device):
+    """Seeded q, k, v, the lengths and the backward's cotangent."""
     gen = torch.Generator().manual_seed(SEED)
     q = torch.randn(c["B"], c["H"], c["S"], c["HD"], generator=gen)
     k = torch.randn(c["B"], c["KV"], c["S"], c["HD"], generator=gen)
     v = torch.randn(c["B"], c["KV"], c["S"], c["HD"], generator=gen)
     lens = torch.tensor([c["length"]] * c["B"], dtype=torch.int32)
-    return [x.to(device) for x in (q, k, v, lens)]
+    d_out = torch.randn(c["B"], c["H"], c["S"], c["HD"], generator=gen)
+    return [x.to(device) for x in (q, k, v, lens, d_out)]
 
 
 def _ring_rank(rank: int, store_path: str, spec: dict) -> dict:
     """One rank of the SP check (a spawned process): its chunk of the
     seeded float32 inputs through ``ring_attention``, then the same call
-    timed; returns its output (numpy) and the times."""
+    timed; then the backward from its chunk of the cotangent, and the
+    backward timed.  Returns its output and gradients (numpy) and the
+    times."""
     from deepvision_tpu_torch.engine.ring_attention import (
         make_seq_mesh,
         ring_attention,
@@ -4179,9 +4191,11 @@ def _ring_rank(rank: int, store_path: str, spec: dict) -> dict:
     _cuda_rank_setup(group.device)
     sync = (torch.cuda.synchronize if group.device.type == "cuda"
             else lambda: None)
-    q, k, v, lens = _ring_inputs(spec["shape"], group.device)
+    q, k, v, lens, d_out = _ring_inputs(spec["shape"], group.device)
     c = q.shape[2] // n
-    part = [x[:, :, rank * c:(rank + 1) * c].contiguous() for x in (q, k, v)]
+    part = [x[:, :, rank * c:(rank + 1) * c].contiguous()
+            for x in (q, k, v, d_out)]
+    d_out = part.pop()
     out = ring_attention(*part, lens, group)
     sync()
     times = []
@@ -4192,8 +4206,24 @@ def _ring_rank(rank: int, store_path: str, spec: dict) -> dict:
         sync()
         times.append(((time.monotonic() - t) * 1e3,
                       (group.wait_s - w0) * 1e3))
-    return {"out": out.cpu().numpy(), "ms": [t for t, _ in times],
-            "sendrecv_ms": [w for _, w in times]}
+    leaves = [x.requires_grad_() for x in part]
+    ring_attention(*leaves, lens, group).backward(d_out)
+    grads = [np.array(x.grad.cpu().numpy()) for x in leaves]
+    bwd_times = []
+    for _ in range(3):
+        res = ring_attention(*leaves, lens, group)
+        sync()
+        w0 = group.wait_s
+        t = time.monotonic()
+        res.backward(d_out)
+        sync()
+        bwd_times.append(((time.monotonic() - t) * 1e3,
+                          (group.wait_s - w0) * 1e3))
+    return {"out": out.cpu().numpy(), "grads": grads,
+            "ms": [t for t, _ in times],
+            "sendrecv_ms": [w for _, w in times],
+            "backward_ms": [t for t, _ in bwd_times],
+            "backward_sendrecv_ms": [w for _, w in bwd_times]}
 
 
 def _train_parallel_sp() -> dict:
@@ -4207,7 +4237,7 @@ def _train_parallel_sp() -> dict:
     ranks = launch(_ring_rank, n, ({"n": n, "shape": SP_SHAPE,
                                     "device": TRAIN_PARALLEL_DEVICE},),
                    timeout_s=RANKS_TIMEOUT_S)
-    q, k, v, lens = _ring_inputs(SP_SHAPE, TRAIN_PARALLEL_DEVICE)
+    q, k, v, lens, d_out = _ring_inputs(SP_SHAPE, TRAIN_PARALLEL_DEVICE)
     want = flash_attention_reference(q, k, v, lens).cpu().numpy()
     got = np.concatenate([r["out"] for r in ranks], axis=2)
     L = SP_SHAPE["length"]
@@ -4216,12 +4246,34 @@ def _train_parallel_sp() -> dict:
         raise AssertionError(f"train_parallel: ring attention max_abs_err "
                              f"{err} > {SP_TOL}")
     plain_ms = cuda_ms(lambda: flash_attention_reference(q, k, v, lens), 3)
-    del q, k, v
+    # the backward, every row: the length is over 0, so the dense function
+    # equals the ring's everywhere
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    res = flash_attention_reference(*leaves, lens)
+    res.backward(d_out, retain_graph=True)
+    grad_err = {}
+    for i, name in enumerate(("dq", "dk", "dv")):
+        g = np.concatenate([r["grads"][i] for r in ranks], axis=2)
+        g_plain = leaves[i].grad.cpu().numpy()
+        bound = SP_GRAD_TOL * max(float(np.abs(g_plain).max()), 1.0)
+        e = float(np.abs(g - g_plain).max())
+        grad_err[name] = {"max_abs_err": e, "bound": bound}
+        if not (e <= bound and np.isfinite(g).all()):
+            raise AssertionError(f"train_parallel: ring attention {name} "
+                                 f"max_abs_err {e} > {bound}")
+    plain_bwd_ms = cuda_ms(lambda: res.backward(d_out, retain_graph=True),
+                           3)
+    del q, k, v, d_out, leaves, res
     return {"shape": SP_SHAPE, "ranks": n, "dtype": "float32",
             "max_abs_err": err, "tol": SP_TOL,
             "ms": [r["ms"] for r in ranks],
             "sendrecv_ms": [r["sendrecv_ms"] for r in ranks],
             "plain_ms_one_device": plain_ms,
+            "backward": {"grad_err": grad_err, "tol": SP_GRAD_TOL,
+                         "ms": [r["backward_ms"] for r in ranks],
+                         "sendrecv_ms": [r["backward_sendrecv_ms"]
+                                         for r in ranks],
+                         "plain_ms_one_device": plain_bwd_ms},
             "seconds": time.monotonic() - t0}
 
 
@@ -4368,9 +4420,9 @@ def _train_parallel_pp(tok) -> dict:
 def phase_train_parallel() -> dict:
     """Multi-device training on one card, every rank a spawned process on
     ``cuda:0`` over gloo: DP2 x TP2 ``Trainer(mesh, plan)`` on dv-base
-    against one rank; ring attention over 2 ranks against plain float32
-    attention; ``train_model --pp 2`` and the pipeline's loss against one
-    device's."""
+    against one rank; ring attention and its backward over 2 ranks
+    against plain float32 attention and its autograd; ``train_model --pp
+    2`` and the pipeline's loss against one device's."""
     import multiprocessing
 
     from deepvision_tpu_torch.engine.tokenizer import get_tokenizer

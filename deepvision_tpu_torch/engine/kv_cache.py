@@ -85,6 +85,23 @@ def quantize_rows(x: torch.Tensor, scale: torch.Tensor,
     return q.clamp_(-127.0, 127.0).to(torch.int8)
 
 
+def cache_hbm_bytes(model: ModelConfig, cache: CacheConfig) -> int:
+    """Device bytes of the K and V pools of every layer."""
+    per = (model.n_layers * cache.num_pages * cache.page_size
+           * model.n_kv_heads * model.head_dim)
+    return 2 * per * cache.dtype.itemsize
+
+
+def stack_cache(cache: dict) -> dict:
+    """Stacked ``[L, ...]`` copies of the per-layer pools (and of int8
+    pools' scales), for checkpointing and inspection."""
+    out = {"k": torch.stack(cache["k"]), "v": torch.stack(cache["v"])}
+    if "ks" in cache:
+        out["ks"] = torch.stack(cache["ks"])
+        out["vs"] = torch.stack(cache["vs"])
+    return out
+
+
 class PageAllocator:
     """Thread-safe refcounting allocator over the shared page pool.
 

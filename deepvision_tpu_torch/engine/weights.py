@@ -240,3 +240,12 @@ def count_params(params: dict) -> int:
         count_params(v) if isinstance(v, dict) else v.numel()
         for v in params.values()
     )
+
+
+def param_bytes(params: dict) -> int:
+    """Bytes of every leaf (an int8 weight's ``q8`` and ``scale`` too)."""
+    return sum(
+        param_bytes(v) if isinstance(v, dict)
+        else v.numel() * v.element_size()
+        for v in params.values()
+    )

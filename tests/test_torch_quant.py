@@ -116,10 +116,8 @@ def test_quantize_params_tree_matches_jax():
             assert name in ("ln1", "ln2")
             assert tq["blocks"][name] is tp["blocks"][name]
     assert tq["embed"] is tp["embed"]
-    nbytes = lambda t: sum(   # noqa: E731
-        nbytes(v) if isinstance(v, dict) else v.numel() * v.element_size()
-        for v in t.values())
-    assert nbytes(tq["blocks"]) < 0.65 * nbytes(tp["blocks"])
+    assert (tweights.param_bytes(tq["blocks"])
+            < 0.65 * tweights.param_bytes(tp["blocks"]))
     back = tquant.dequantize_params(tq)
     assert not tquant.is_quantized(back)
     for name in ("wq", "w_down"):
