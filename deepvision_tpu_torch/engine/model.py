@@ -54,6 +54,7 @@ from deepvision_tpu_torch.engine.parallel import (
     gather_from_group,
     reduce_from_group,
 )
+from deepvision_tpu_torch.engine.spans import span
 
 
 # ---------------------------------------------------------------------------
@@ -412,21 +413,27 @@ def forward_train(params, tokens, *, cfg: ModelConfig,
     if group is not None and group.size == 1:
         group = None
     B, S = tokens.shape
-    x = _scaled_embed(params, tokens, cfg, act_dtype, group, vocab_sharded)
-    rope = rope_tables(torch.arange(S, device=tokens.device), cfg.head_dim,
-                       cfg.rope_theta)
-    seq_lens = torch.full((B,), S, dtype=torch.int32, device=tokens.device)
-    blocks, kv_heads = _train_blocks(params["blocks"], cfg, group)
-    for i in range(blocks["ln1"].shape[0]):
-        x = train_layer(_layer({"blocks": blocks}, i), x, cfg=cfg,
-                        act_dtype=act_dtype, attn_fn=attn_fn, rope=rope,
-                        seq_lens=seq_lens, group=group, kv_heads=kv_heads)
-    x = rms_norm(x, params["final_norm"], cfg.rms_eps)
-    if group is not None and vocab_sharded:
-        x = copy_to_group(x, group)
-    logits = _logits(x, params, cfg)
-    if group is not None and vocab_sharded and not local_logits:
-        logits = gather_from_group(logits, group)
+    with span("train.embed"):
+        x = _scaled_embed(params, tokens, cfg, act_dtype, group,
+                          vocab_sharded)
+        rope = rope_tables(torch.arange(S, device=tokens.device),
+                           cfg.head_dim, cfg.rope_theta)
+        seq_lens = torch.full((B,), S, dtype=torch.int32,
+                              device=tokens.device)
+    with span("train.blocks"):
+        blocks, kv_heads = _train_blocks(params["blocks"], cfg, group)
+        for i in range(blocks["ln1"].shape[0]):
+            x = train_layer(_layer({"blocks": blocks}, i), x, cfg=cfg,
+                            act_dtype=act_dtype, attn_fn=attn_fn, rope=rope,
+                            seq_lens=seq_lens, group=group,
+                            kv_heads=kv_heads)
+    with span("train.head"):
+        x = rms_norm(x, params["final_norm"], cfg.rms_eps)
+        if group is not None and vocab_sharded:
+            x = copy_to_group(x, group)
+        logits = _logits(x, params, cfg)
+        if group is not None and vocab_sharded and not local_logits:
+            logits = gather_from_group(logits, group)
     return logits
 
 

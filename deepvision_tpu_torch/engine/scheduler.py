@@ -36,6 +36,7 @@ import numpy as np
 from deepvision_tpu_torch.engine.kv_cache import PageAllocator, pages_needed
 from deepvision_tpu_torch.engine.prefix_cache import PrefixCache
 from deepvision_tpu_torch.engine.runner import ModelRunner
+from deepvision_tpu_torch.engine.spans import span
 
 HIGH = 0
 LOW = 1
@@ -314,9 +315,12 @@ class ContinuousBatchingScheduler:
 
     def step(self) -> bool:
         """One admit + prefill-chunk + decode cycle."""
-        admitted = self._admit()
-        prefilled = self._advance_prefills()
-        decoded = self._decode_step()
+        with span("sched.step"):
+            with span("sched.admit"):
+                admitted = self._admit()
+            with span("sched.prefill_chunk"):
+                prefilled = self._advance_prefills()
+            decoded = self._decode_step()
         return admitted or prefilled or decoded
 
     # -- admission ------------------------------------------------------
@@ -601,37 +605,38 @@ class ContinuousBatchingScheduler:
             # single-token steps while prompts are mid-prefill, so waiting
             # prompts advance about every step
             K = 1
-        batch, retired = self._gather_decode_batch(K)
+        with span("sched.gather"):
+            batch, retired = self._gather_decode_batch(K)
         for seq in retired:
             self._retire(seq, "length")
         if not self._active:
             return bool(retired)
         tokens, lens, bt, temps, topk, topp, dstates, budgets = batch
-        t_dec = time.monotonic()
-        if self.pipeline_decode and K > 1 and not self._prefilling:
-            try:
+        with span("sched.decode", add_to=(self, "decode_time_s"),
+                  B=len(self._active), K=K):
+            if self.pipeline_decode and K > 1 and not self._prefilling:
                 return self._decode_step_pipelined(K, batch)
-            finally:
-                self.decode_time_s += time.monotonic() - t_dec
-        try:
-            out = self.runner.decode(
-                tokens, lens, bt, temps, topk, topp, n_steps=K,
-                dfa_states=dstates, budgets=budgets,
-            )  # [K, B]
-        except Exception as e:  # noqa: BLE001 — engine must not die
-            self._fail_active(e)
-            return True
-        finally:
-            self.decode_time_s += time.monotonic() - t_dec
-        for seq, reason in self._consume_decode_out(out, K):
-            self._retire(seq, reason)
+            try:
+                out = self.runner.decode(
+                    tokens, lens, bt, temps, topk, topp, n_steps=K,
+                    dfa_states=dstates, budgets=budgets,
+                )  # [K, B]
+            except Exception as e:  # noqa: BLE001 — engine must not die
+                self._fail_active(e)
+                return True
+        self._emit(out, K)
         return True
 
+    def _emit(self, out, K: int) -> None:
+        """Append one call's tokens and retire the sequences it
+        finished."""
+        with span("sched.emit"):
+            for seq, reason in self._consume_decode_out(out, K):
+                self._retire(seq, reason)
+
     def _read(self, pending) -> np.ndarray:
-        t0 = time.monotonic()
-        out = pending.wait()
-        self.readback_wait_s += time.monotonic() - t0
-        return out
+        with span("sched.readback", add_to=(self, "readback_wait_s")):
+            return pending.wait()
 
     def _decode_step_pipelined(self, K: int, batch) -> bool:
         """A chain of decode calls: call k+1 is dispatched, fed by call k's
@@ -664,11 +669,10 @@ class ContinuousBatchingScheduler:
                 # exactly one call is in flight and unread at dispatch time
                 # (call k is read right after k+1 is dispatched), so the
                 # not-yet-appended token count is always K
-                nxt, _ = self._gather_decode_batch(K, ahead=K)
+                with span("sched.gather"):
+                    nxt, _ = self._gather_decode_batch(K, ahead=K)
             if nxt is None:
-                for seq, reason in self._consume_decode_out(
-                        self._read(pending), K):
-                    self._retire(seq, reason)
+                self._emit(self._read(pending), K)
                 return True
             _, lens2, bt2, temps2, topk2, topp2, _, buds2 = nxt
             try:
@@ -681,7 +685,8 @@ class ContinuousBatchingScheduler:
             except Exception as e:  # noqa: BLE001
                 self._fail_active(e)
                 return True
-            finished = self._consume_decode_out(out, K)
+            with span("sched.emit"):
+                finished = self._consume_decode_out(out, K)
             pending = pending2
             chained += 1
             if finished:
@@ -694,10 +699,11 @@ class ContinuousBatchingScheduler:
                     self._fail_active(e)
                     return True
                 skip = {seq.slot for seq, _ in finished}
-                finished2 = self._consume_decode_out(out2, K,
-                                                     skip_slots=skip)
-                for seq, reason in finished + finished2:
-                    self._retire(seq, reason)
+                with span("sched.emit"):
+                    finished2 = self._consume_decode_out(out2, K,
+                                                         skip_slots=skip)
+                    for seq, reason in finished + finished2:
+                        self._retire(seq, reason)
                 return True
 
     def _seq_finished(self, seq: _ActiveSeq, tok: int) -> bool:

@@ -37,6 +37,7 @@ from deepvision_tpu_torch.engine.parallel import (
     reduce_from_group,
     shard_params,
 )
+from deepvision_tpu_torch.engine.spans import span
 from deepvision_tpu_torch.engine.weights import init_params
 
 
@@ -131,13 +132,16 @@ class AdamW:
         host sync.  ``grad_norm(leaves)`` gives that norm where the leaves
         are shards (:func:`global_grad_norm`)."""
         if self.max_grad_norm is not None:
-            clip_by_global_norm_(
-                [p.grad for p in state.leaves if p.grad is not None],
-                self.max_grad_norm,
-                grad_norm(state.leaves) if grad_norm is not None else None)
-        state.optimizer.step()
-        if state.lr_schedule is not None:
-            state.lr_schedule.step()
+            with span("train.clip"):
+                clip_by_global_norm_(
+                    [p.grad for p in state.leaves if p.grad is not None],
+                    self.max_grad_norm,
+                    grad_norm(state.leaves) if grad_norm is not None
+                    else None)
+        with span("train.optimizer"):
+            state.optimizer.step()
+            if state.lr_schedule is not None:
+                state.lr_schedule.step()
 
 
 @dataclasses.dataclass
@@ -239,19 +243,24 @@ def make_train_step(cfg: ModelConfig, optimizer: AdamW, *,
             return global_grad_norm(leaves, dims, group)
 
     def step(params, opt_state: OptState, tokens):
-        opt_state.optimizer.zero_grad(set_to_none=True)
-        logits = model_lib.forward_train(
-            params, tokens[:, :-1], cfg=cfg, act_dtype=act_dtype,
-            use_kernel=use_kernel, group=group, vocab_sharded=vocab_sharded,
-            local_logits=True)
-        loss = cross_entropy_loss(logits, tokens[:, 1:],
-                                  group if vocab_sharded else None)
+        with span("train.zero_grad"):
+            opt_state.optimizer.zero_grad(set_to_none=True)
+        with span("train.forward"):
+            logits = model_lib.forward_train(
+                params, tokens[:, :-1], cfg=cfg, act_dtype=act_dtype,
+                use_kernel=use_kernel, group=group,
+                vocab_sharded=vocab_sharded, local_logits=True)
+        with span("train.loss"):
+            loss = cross_entropy_loss(logits, tokens[:, 1:],
+                                      group if vocab_sharded else None)
         del logits
-        loss.backward()
+        with span("train.backward"):
+            loss.backward()
         loss = loss.detach()
         if mesh is not None and mesh.n_data > 1:
-            sum_grads_(opt_state.leaves, mesh.data, 1.0 / mesh.n_data)
-            loss = mesh.data.all_reduce(loss.clone()) / mesh.n_data
+            with span("train.grad_sync"):
+                sum_grads_(opt_state.leaves, mesh.data, 1.0 / mesh.n_data)
+                loss = mesh.data.all_reduce(loss.clone()) / mesh.n_data
         optimizer.update(opt_state, grad_norm)
         return loss
 
@@ -355,7 +364,8 @@ class Trainer:
     def train_step_async(self, tokens) -> torch.Tensor:
         """Like :meth:`train_step` but returns the loss as a device tensor,
         without a host sync; hot loops read losses only at log points."""
-        loss = self._step(self.params, self.opt_state,
-                          self.place_batch(tokens))
+        with span("train.step", step=self.step_count):
+            loss = self._step(self.params, self.opt_state,
+                              self.place_batch(tokens))
         self.step_count += 1
         return loss
