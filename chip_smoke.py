@@ -27,7 +27,10 @@ Phases, each printing one JSON line with its own seconds:
    more splits than pages, GQA groups 1/2/3/8 at head dims 32-256), with
    times for the kernel, the plain version and, where one exists, the
    PyTorch library call that computes the same function (for the flash
-   forward without padded rows also SDPA's causal flash backend).  The
+   forward without padded rows also SDPA's causal flash backend); the
+   bf16 split of training's float32 products (``csrc/bf16_split.cu``) at
+   dv-base's weights and logit gradient, in every layout, bit for bit
+   against its plain version, with its time and HBM bound.  The
    flash forward, the paged chunk attention and the decode kernels, and
    their library calls, are timed from CUDA graphs (``graph_ms``): at a
    few microseconds of device time a host-timed loop measures the
@@ -152,8 +155,11 @@ Phases, each printing one JSON line with its own seconds:
    the dv_bpe_16k tokenizer, ``train_model.py``'s optimizer chain, the
    flash forward and both backward kernels.  The loss must be finite and
    fall over 8 steps on the batch, each backward kernel must run 12 times
-   a step, one step at B=2 must agree with the plain attention through
-   autograd (loss and every gradient leaf), and ``save_npz`` ->
+   a step, every float32 product must take ``f32_matmul``'s split route
+   (85 a step) with the split kernel launched 50 times a step and no
+   float32 GEMM on the CUDA cores, one step at B=2 must agree with the
+   plain attention and cuBLAS float32 products through autograd (loss
+   and every gradient leaf), and ``save_npz`` ->
    ``load_or_init`` must give back the same bits; one step is profiled;
 18. train_parallel — multi-device training, every rank a spawned process
    on ``cuda:0`` over gloo: dv-base at full width and depth through
@@ -1089,6 +1095,79 @@ def train_shard_cases(gen) -> dict:
     return out
 
 
+def _bits16(t: torch.Tensor) -> torch.Tensor:
+    """A bf16 tensor's bits, whatever its layout."""
+    return t.contiguous().view(torch.int16)
+
+
+def bf16_split_cases(gen) -> dict:
+    """The split kernel (``csrc/bf16_split.cu``) at the shapes dv-base's
+    training step gives it: each block weight as the products take it
+    (q/k/v and gate/up side by side), the tied head as its transposed
+    view, both layouts from one pass, and the float32 logit gradient
+    ``[B*S, V]`` in one layout; every layout (stacked along the rows, along
+    the columns, both at once), read as it lies and transposed, bit for bit
+    against :func:`split_bf16_reference` on the card.  Bound: HBM bytes,
+    4 read and 6 written a value, 12 written with two layouts.  Returns
+    the logit gradient's case."""
+    from deepvision_tpu_torch.engine.config import get_model_config
+    from deepvision_tpu_torch.engine.kernels.bf16_split import (
+        split_bf16,
+        split_bf16_both,
+        split_bf16_reference,
+    )
+
+    cfg = get_model_config("dv-base")
+    D, F, V = cfg.d_model, cfg.d_ff, cfg.vocab_size
+    q, kv = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+    dev = torch.device("cuda")
+    shapes = [("w_qkv", (D, q + 2 * kv), 0.02), ("wo", (q, D), 0.02),
+              ("w_gate_up", (D, 2 * F), 0.02), ("w_down", (F, D), 0.02),
+              ("head", (V, D), 0.02), ("dlogits", (8 * 2048, V), 1e-6)]
+    out = {}
+    for name, shape, scale in shapes:
+        t = torch.randn(*shape, generator=gen, device=dev) * scale
+        if name == "head":      # the products take the tied embedding as E.T
+            t = t.t()
+        for view in (t, t.t()):
+            for dim in (0, 1):
+                want = _bits16(split_bf16_reference(view, dim))
+                if not torch.equal(_bits16(split_bf16(view, dim)), want):
+                    raise AssertionError(f"bf16_split {name} {dim}: not "
+                                         f"the plain version's bits")
+            both = split_bf16_both(view)
+            for dim in (0, 1):
+                if not torch.equal(_bits16(both[dim]), _bits16(
+                        split_bf16_reference(view, dim))):
+                    raise AssertionError(f"bf16_split {name} both[{dim}]: "
+                                         f"not the plain version's bits")
+            del both, want
+        # what the step runs: a weight's two layouts from one pass, the
+        # logit gradient stacked along its rows
+        two = name != "dlogits"
+        iters = 5 if name in ("dlogits", "head") else 20
+        if two:
+            fn = lambda: split_bf16_both(t)   # noqa: E731
+            plain = lambda: (split_bf16_reference(t, 0),   # noqa: E731
+                             split_bf16_reference(t, 1))
+        else:
+            fn = lambda: split_bf16(t, 0)   # noqa: E731
+            plain = lambda: split_bf16_reference(t, 0)   # noqa: E731
+        ms = cuda_ms(fn, iters)
+        plain_ms = cuda_ms(plain, max(2, iters // 5))
+        bound_ms, bound_by = bound(t.numel() * (16 if two else 10), 0.0,
+                                   H100_BF16_FLOP_S)
+        out[name] = {"case": name, "shape": list(t.shape),
+                     "transposed": not t.is_contiguous(),
+                     "layouts": 2 if two else 1, "bit_equal": True,
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "share_of_bound": bound_ms / ms}
+        emit({"phase": "kernels", "kernel": "bf16_split", **out[name]})
+        del t
+    torch.cuda.empty_cache()
+    return out["dlogits"]
+
+
 def phase_kernels() -> dict:
     t0 = time.monotonic()
     gen = torch.Generator(device="cuda")
@@ -1121,9 +1200,10 @@ def phase_kernels() -> dict:
     bwd = bwd_cases(gen)
     tp = tp_shard_cases(gen)
     train_shard = train_shard_cases(gen)
+    split = bf16_split_cases(gen)
     emit({"phase": "kernels_done", "seconds": time.monotonic() - t0})
     return {"flash_fwd": flash[0], "paged_chunk": chunk, **bwd, **decode,
-            "tp_shard": tp, "train_shard": train_shard}
+            "tp_shard": tp, "train_shard": train_shard, "bf16_split": split}
 
 
 def _report_prompts(tokenizer, targets):
@@ -3740,6 +3820,27 @@ def _flat(tree, prefix=""):
             yield f"{prefix}{name}", leaf
 
 
+@contextlib.contextmanager
+def _plain_float32_products():
+    """``model.py``'s float32 products as cuBLAS float32 matmuls of float
+    copies, the way they ran before the tensor-core split: a check's plain
+    side then shares no code with ``f32_matmul``'s split route."""
+    from deepvision_tpu_torch.engine import model as model_lib
+
+    def one(x, w, out_dtype=torch.float32):
+        return torch.matmul(x.float(), w.float()).to(out_dtype)
+
+    def many(x, ws, out_dtype=torch.float32):
+        return tuple(one(x, w, out_dtype) for w in ws)
+
+    saved = model_lib.f32_matmul, model_lib.f32_matmuls
+    model_lib.f32_matmul, model_lib.f32_matmuls = one, many
+    try:
+        yield
+    finally:
+        model_lib.f32_matmul, model_lib.f32_matmuls = saved
+
+
 def _profile_step(fn, wall_ms: float) -> dict:
     """Device time by kernel of one call of ``fn`` (torch.profiler), grouped
     by what the kernels do, and the device's busy share of ``wall_ms``."""
@@ -3752,23 +3853,29 @@ def _profile_step(fn, wall_ms: float) -> dict:
         torch.cuda.synchronize()
     kernels = {}
     for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
+        # the port's spans (engine/spans.py) appear on the device's
+        # timeline as ranges over their kernels
+        if (e.device_type != DeviceType.CUDA
+                or e.key.startswith(("train.", "sched."))):
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = e.self_cuda_time_total
         kernels[e.key] = kernels.get(e.key, 0.0) + us / 1e3
     groups = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0,
-              "matmul": 0.0, "optimizer": 0.0, "other": 0.0}
+              "matmul": 0.0, "bf16_split": 0.0, "optimizer": 0.0,
+              "other": 0.0}
     for name, ms in kernels.items():
         low = name.lower()
-        if "flash_fwd" in low:
+        if "bf16_split" in low:
+            groups["bf16_split"] += ms
+        elif "flash_fwd" in low:
             groups["flash_fwd"] += ms
         elif "flash_bwd_dq" in low:
             groups["flash_bwd_dq"] += ms
         elif "flash_bwd_dkv" in low:
             groups["flash_bwd_dkv"] += ms
-        elif "gemm" in low or "cutlass" in low or "xmma" in low:
+        elif any(k in low for k in ("gemm", "cutlass", "xmma", "nvjet")):
             groups["matmul"] += ms
         elif "multi_tensor" in low or "adam" in low:
             groups["optimizer"] += ms
@@ -3779,7 +3886,10 @@ def _profile_step(fn, wall_ms: float) -> dict:
     return {"device_ms": total, "wall_ms": wall_ms,
             "busy_share": total / wall_ms if wall_ms else None,
             "groups_ms": groups,
-            "top_kernels_ms": [[name[:90], ms] for name, ms in top]}
+            "top_kernels_ms": [[name[:90], ms] for name, ms in top],
+            # float32 GEMMs on the CUDA cores (cuBLAS sgemm, xmma f32f32)
+            "f32_gemm_kernels": sorted(n[:90] for n in kernels
+                                       if re.search(r"sgemm|f32f32", n))}
 
 
 def phase_train() -> dict:
@@ -3790,7 +3900,9 @@ def phase_train() -> dict:
 
     from deepvision_tpu_torch.engine import model as model_lib
     from deepvision_tpu_torch.engine.config import get_model_config
+    from deepvision_tpu_torch.engine.f32_matmul import f32_matmul
     from deepvision_tpu_torch.engine.kernels import flash_attention as fa
+    from deepvision_tpu_torch.engine.kernels.bf16_split import split_bf16
     from deepvision_tpu_torch.engine.tokenizer import get_tokenizer
     from deepvision_tpu_torch.engine.training import (
         Trainer,
@@ -3823,8 +3935,9 @@ def phase_train() -> dict:
                       device="cuda")
     n_params = count_params(trainer.params)
     counters = (fa.flash_attention, fa.flash_bwd_dq, fa.flash_bwd_dkv)
-    for fn in counters:
+    for fn in counters + (split_bf16,):
         fn.launches = 0
+    f32_matmul.routes.update(split=0, plain=0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     losses, step_ms = [], []
@@ -3837,6 +3950,20 @@ def phase_train() -> dict:
     launches = {"flash_fwd": fa.flash_attention.launches,
                 "flash_bwd_dq": fa.flash_bwd_dq.launches,
                 "flash_bwd_dkv": fa.flash_bwd_dkv.launches}
+    # every float32 product of a step on the tensor cores: a layer's q, k,
+    # v, wo, gate, up and w_down and the tied head; the split kernel once
+    # for each weight (q/k/v and gate/up side by side: 4 a layer, the head
+    # 1) and once for the head's float32 logit gradient
+    routes = dict(f32_matmul.routes)
+    split_launches = split_bf16.launches
+    want_routes = {"split": (7 * cfg.n_layers + 1) * steps, "plain": 0}
+    if routes != want_routes:
+        raise AssertionError(f"f32_matmul routes over {steps} steps: "
+                             f"{routes}, expected {want_routes}")
+    if split_launches != (4 * cfg.n_layers + 2) * steps:
+        raise AssertionError(f"bf16_split: {split_launches} launches in "
+                             f"{steps} steps, expected "
+                             f"{4 * cfg.n_layers + 2} per step")
     losses = [float(x) for x in losses]
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"non-finite training loss: {losses}")
@@ -3850,9 +3977,13 @@ def phase_train() -> dict:
     steady_ms = sum(step_ms[1:]) / (steps - 1)
     profile = _profile_step(lambda: trainer.train_step_async(batch),
                             steady_ms)
+    if profile["f32_gemm_kernels"]:
+        raise AssertionError(f"float32 GEMMs on the CUDA cores in a step: "
+                             f"{profile['f32_gemm_kernels']}")
 
-    # one step's loss and gradients at B=2: the kernels against the plain
-    # attention through autograd, from the same float32 params.  Both run
+    # one step's loss and gradients at B=2: the kernels and the split
+    # route against the plain attention and cuBLAS float32 products
+    # through autograd, from the same float32 params.  Both run
     # bf16 activations and differ at their bf16 rounding points (the
     # attention output summed in another order; dQ/dK/dV from lse and
     # D = rowsum(dO * O_bf16) against autograd's softmax backward), each up
@@ -3863,12 +3994,15 @@ def phase_train() -> dict:
     names, leaves = zip(*_flat(tree))
     res = {}
     for use_kernel in (True, False):
-        logits = model_lib.forward_train(tree, batch[:2, :-1], cfg=cfg,
-                                         use_kernel=use_kernel)
-        loss = cross_entropy_loss(logits, batch[:2, 1:])
-        del logits
-        res[use_kernel] = (loss.item(), torch.autograd.grad(loss, leaves))
-        del loss
+        with (contextlib.nullcontext() if use_kernel
+              else _plain_float32_products()):
+            logits = model_lib.forward_train(tree, batch[:2, :-1], cfg=cfg,
+                                             use_kernel=use_kernel)
+            loss = cross_entropy_loss(logits, batch[:2, 1:])
+            del logits
+            res[use_kernel] = (loss.item(),
+                               torch.autograd.grad(loss, leaves))
+            del loss
     loss_rel = abs(res[True][0] - res[False][0]) / abs(res[False][0])
     grad_rel = {}
     for name, a, b_ in zip(names, res[True][1], res[False][1]):
@@ -3907,6 +4041,7 @@ def phase_train() -> dict:
         "losses": losses, "step_ms": step_ms, "ms_per_step": steady_ms,
         "tokens_per_s": B * S / (steady_ms / 1e3),
         "peak_mem_gb": peak_gb, "launches": launches,
+        "f32_matmul_routes": routes, "bf16_split_launches": split_launches,
         "parity_b2": {"loss_rel": loss_rel, "loss_tol": 1e-3,
                       "grad_rel_max": max(grad_rel.values()),
                       "grad_tol": 5e-2, "grad_rel": grad_rel},

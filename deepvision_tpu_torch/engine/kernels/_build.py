@@ -40,6 +40,7 @@ DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1, torch.int8: 2}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 _SIGNATURES = {
     # q, k, v, seq_lens, out, lse (or null), B, H, KV, S, HD, dtype, scale,
     # stream
@@ -81,6 +82,9 @@ _SIGNATURES = {
     # host code (csrc/zstd_decode.cu): src, n, dst, cap -> bytes written or
     # a negative error
     "dv_zstd_decompress": [_P, ctypes.c_longlong, _P, ctypes.c_longlong],
+    # in, out, out2 (or null), R, C, term_stride, row_stride, term_stride2,
+    # row_stride2, stream
+    "dv_bf16_split": [_P, _P, _P, _L, _L, _L, _L, _L, _L, _P],
 }
 # return types other than the launches' cudaError_t
 _RESTYPES = {"dv_zstd_decompress": ctypes.c_longlong}

@@ -35,6 +35,7 @@ from __future__ import annotations
 import torch
 
 from deepvision_tpu_torch.engine.config import ModelConfig
+from deepvision_tpu_torch.engine.f32_matmul import f32_matmul, f32_matmuls
 from deepvision_tpu_torch.engine.kernels.flash_attention import (
     flash_attention,
     flash_attention_reference,
@@ -103,12 +104,32 @@ def qdot(x: torch.Tensor, w, out_dtype=torch.bfloat16) -> torch.Tensor:
     ``{"q8", "scale"}`` weights, as the JAX package's ``qdot``: ``x`` as
     bf16 times ``q8`` as bf16 with a float32 result, then the
     per-output-channel scale multiplies that float32 result, and only the
-    scaled result is rounded to ``out_dtype``."""
+    scaled result is rounded to ``out_dtype``.  The float32 products go
+    through :func:`~deepvision_tpu_torch.engine.f32_matmul.f32_matmul`
+    (exact bf16-term products on the card's tensor cores where an operand
+    is float32)."""
     if isinstance(w, dict):
         return (_q8_matmul(x, w["q8"]) * w["scale"]).to(out_dtype)
-    if out_dtype == torch.float32 or torch.float32 in (x.dtype, w.dtype):
-        return torch.matmul(x.float(), w.float()).to(out_dtype)
+    if _float32_product(x, w, out_dtype):
+        return f32_matmul(x, w, out_dtype)
     return torch.matmul(x, w.to(x.dtype)).to(out_dtype)
+
+
+def _float32_product(x: torch.Tensor, w, out_dtype) -> bool:
+    """Whether :func:`qdot` multiplies ``x`` by the plain weight ``w`` as
+    float32: a float32 operand or result, as JAX promotes types."""
+    return not isinstance(w, dict) and (
+        out_dtype == torch.float32 or torch.float32 in (x.dtype, w.dtype))
+
+
+def qdots(x: torch.Tensor, ws, out_dtype=torch.bfloat16) -> tuple:
+    """:func:`qdot` of ``x`` with each weight of ``ws`` (projections that
+    share their input); where every one takes qdot's float32 branch, they
+    are one :func:`~deepvision_tpu_torch.engine.f32_matmul.f32_matmuls`
+    call."""
+    if all(_float32_product(x, w, out_dtype) for w in ws):
+        return f32_matmuls(x, ws, out_dtype)
+    return tuple(qdot(x, w, out_dtype) for w in ws)
 
 
 def _q8_matmul(x: torch.Tensor, q8: torch.Tensor) -> torch.Tensor:
@@ -134,12 +155,21 @@ def _qkv_proj(h, blk, cfg: ModelConfig, dtype=torch.bfloat16):
         kv_w = cfg.n_kv_heads * cfg.head_dim
         return (qkv[..., :q_w], qkv[..., q_w:q_w + kv_w],
                 qkv[..., q_w + kv_w:])
-    return (qdot(h, blk["wq"], dtype), qdot(h, blk["wk"], dtype),
-            qdot(h, blk["wv"], dtype))
+    return qdots(h, (blk["wq"], blk["wk"], blk["wv"]), dtype)
 
 
 def _psum(x: torch.Tensor, group) -> torch.Tensor:
     return reduce_from_group(x, group)
+
+
+def _out_proj(x, w, group, dtype):
+    """A row-parallel projection (wo, w_down): ``x @ w`` with a float32
+    result, summed over ``group`` and rounded to ``dtype``.  On one device
+    the rounding happens inside the product, so that its backward sees the
+    bf16 gradient the rounding passes back."""
+    if group is None and not isinstance(w, dict):
+        return f32_matmul(x, w, dtype)
+    return _psum(qdot(x, w, torch.float32), group).to(dtype)
 
 
 def _mlp(x, blk, compute_dtype=torch.bfloat16, group=None):
@@ -148,10 +178,9 @@ def _mlp(x, blk, compute_dtype=torch.bfloat16, group=None):
         F = gu.shape[-1] // 2
         gate, up = gu[..., :F], gu[..., F:]
     else:
-        gate = qdot(x, blk["w_gate"], compute_dtype)
-        up = qdot(x, blk["w_up"], compute_dtype)
+        gate, up = qdots(x, (blk["w_gate"], blk["w_up"]), compute_dtype)
     h = torch.nn.functional.silu(gate.float()).to(x.dtype) * up
-    return _psum(qdot(h, blk["w_down"], torch.float32), group).to(x.dtype)
+    return _out_proj(h, blk["w_down"], group, x.dtype)
 
 
 def _embed(params, tokens, dtype=torch.bfloat16, group=None,
@@ -179,7 +208,7 @@ def _logits(x, params, cfg: ModelConfig):
     if isinstance(w, dict):    # an int8 untied lm_head
         logits = qdot(x, w, torch.float32)
     else:
-        logits = torch.matmul(x.float(), w.float())
+        logits = f32_matmul(x, w, torch.float32)
     if cfg.logit_softcap:
         logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
     return logits
@@ -245,8 +274,7 @@ def forward_prefill(params, cache, tokens, seq_lens, prefill_pages, *,
             q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
             v.transpose(1, 2).contiguous(), seq_lens)   # [B, H, S, HD]
         attn = attn.transpose(1, 2).reshape(B, S, -1)
-        x = x + _psum(qdot(attn, blk["wo"], torch.float32),
-                     group).to(x.dtype)
+        x = x + _out_proj(attn, blk["wo"], group, x.dtype)
         x = x + _mlp(rms_norm(x, blk["ln2"], cfg.rms_eps), blk,
                      group=group)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
@@ -292,8 +320,8 @@ def forward_prefill_chunk(params, cache, tokens, chunk_starts, seq_lens,
         attn = paged_chunk_attention(
             q.contiguous(), cache["k"][i], cache["v"][i], block_tables,
             chunk_starts, chunk_end, k_scale=ksc, v_scale=vsc)
-        x = x + _psum(qdot(attn.reshape(B, C, -1), blk["wo"],
-                           torch.float32), group).to(x.dtype)
+        x = x + _out_proj(attn.reshape(B, C, -1), blk["wo"], group,
+                          x.dtype)
         x = x + _mlp(rms_norm(x, blk["ln2"], cfg.rms_eps), blk,
                      group=group)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
@@ -335,8 +363,7 @@ def forward_decode(params, cache, tokens, seq_lens, block_tables, *,
             q.contiguous(), k.contiguous(), v.contiguous(), cache["k"][i],
             cache["v"][i], block_tables, seq_lens, k_scale=ksc, v_scale=vsc,
             splits=splits)
-        x = x + _psum(qdot(attn.reshape(B, -1), blk["wo"],
-                           torch.float32), group).to(x.dtype)
+        x = x + _out_proj(attn.reshape(B, -1), blk["wo"], group, x.dtype)
         x = x + _mlp(rms_norm(x, blk["ln2"], cfg.rms_eps), blk,
                      group=group)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
@@ -374,7 +401,7 @@ def calibrate_kv_scales(params, tokens, *, cfg: ModelConfig,
         attn = flash_attention_reference(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), seq_lens)
         attn = attn.transpose(1, 2).reshape(B, S, -1)
-        x = x + qdot(attn, blk["wo"], torch.float32).to(x.dtype)
+        x = x + _out_proj(attn, blk["wo"], None, x.dtype)
         x = x + _mlp(rms_norm(x, blk["ln2"], cfg.rms_eps), blk)
     k_scales = torch.clamp(torch.stack(k_maxes) * margin / 127.0, min=1e-6)
     v_scales = torch.clamp(torch.stack(v_maxes) * margin / 127.0, min=1e-6)
@@ -454,7 +481,7 @@ def train_layer(blk, x, *, cfg: ModelConfig, act_dtype, attn_fn, rope,
         k, v = k.index_select(1, kv_heads), v.index_select(1, kv_heads)
     attn = attn_fn(q.contiguous(), k.contiguous(), v.contiguous(), seq_lens)
     attn = attn.transpose(1, 2).reshape(B, S, -1)
-    x = x + _psum(qdot(attn, blk["wo"], torch.float32), group).to(x.dtype)
+    x = x + _out_proj(attn, blk["wo"], group, x.dtype)
     h2 = copy_to_group(rms_norm(x, blk["ln2"], cfg.rms_eps), group)
     return x + _mlp(h2, blk, act_dtype, group)
 

@@ -40,6 +40,7 @@ import torch
 
 from deepvision_tpu_torch.engine import model as model_lib
 from deepvision_tpu_torch.engine.config import ModelConfig
+from deepvision_tpu_torch.engine.f32_matmul import f32_matmul
 from deepvision_tpu_torch.engine.kernels.flash_attention import (
     flash_attention_reference,
 )
@@ -128,7 +129,7 @@ def _head_loss(h, targets, params, cfg: ModelConfig):
     against the (tied) head, mean cross-entropy."""
     h = model_lib.rms_norm(h, params["final_norm"], cfg.rms_eps)
     w = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
-    logits = torch.matmul(h.float(), w.float())
+    logits = f32_matmul(h, w, torch.float32)
     return cross_entropy_loss(logits, targets)
 
 
